@@ -6,13 +6,16 @@
 From the root of a checkout, on a machine with a CUDA device and ``nvcc``.
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at the main path's shapes, drives
-the main path (``repro_torch.solve`` with ``format="csr"`` and a default
-schedule, one sweep launch per record chunk: randomized Gauss-Seidel on
-``random_sparse_spd(16384)``, randomized Kaczmarz on
-``random_sparse_lsq(32768, 4096)``), checks what comes out,
-shows from the launch counters that the main path ran the kernels, and
-times each kernel beside its plain version, its roofline bound and, where
-one exists, a PyTorch library call computing the same function.
+the main paths (``repro_torch.solve`` with a default schedule, one sweep
+launch per record chunk): randomized Gauss-Seidel on
+``random_sparse_spd(16384)`` through the CSR and the ELL formats, and on
+``block_banded_spd(16384, block=128, bands=2)`` through the block-banded
+format; randomized Kaczmarz on ``random_sparse_lsq(32768, 4096)`` through
+CSR.  It checks what comes out, shows from the launch counters (set to 0
+just before each path and read just after) that each path ran its kernels
+and nothing else, and times each kernel beside its plain version, its
+roofline bound and, where one exists, a PyTorch library call computing the
+same function.
 
 The last lines of standard output are the card's name and power limit (as
 ``nvidia-smi`` gives them), one JSON object describing the kernels, and
@@ -43,9 +46,15 @@ SEED = 0
 K = 51                      # the paper's right-hand-side count
 SPD_N, SPD_ROW_NNZ, GS_SWEEPS = 16384, 16, 10
 LSQ_M, LSQ_N, LSQ_ROW_NNZ, RK_SWEEPS = 32768, 4096, 16, 3
+ELL_SWEEPS = 10             # ELL GS on the same SPD problem as CSR GS
+BLOCK, BANDS, BANDED_SWEEPS = 128, 2, 10    # block_banded_spd(SPD_N, ...)
 PREFIX = 2048               # picks of the kernel-vs-plain sweep checks
 SWEEP_RTOL = 1e-5           # rel ||x_kernel - x_plain|| / ||x_plain||
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # |y_k - y_p| <= rtol * (|A| |x|) + atol
+# bbmv sums 5 * 128 = 640 products per output; fmaf (kernel) against
+# separately rounded products and sums (plain version) drift apart like a
+# random walk of ~sqrt(640) * 2^-24 ~ 1.5e-6 relative to |A| |x|.
+BBMV_RTOL, BBMV_ATOL = 2e-5, 1e-6
 MONO_RTOL = 1e-6            # err_sq non-increasing up to this rounding
 RESID_RTOL = 1e-4           # kernel residual vs dense torch.matmul residual
 
@@ -101,10 +110,13 @@ def main() -> int:
         return 2
     try:
         from repro_torch import (Schedule, a_norm_sq, as_operator,
+                                 block_banded_spd, laplacian_spd,
                                  random_sparse_lsq, random_sparse_spd, solve)
+        from repro_torch.core import ell_from_dense
         from repro_torch.core.engine import draw_picks, sample_rows
         from repro_torch.core.operators import CsrOp
-        from repro_torch.kernels import _build, ops, ref, sweep_csr
+        from repro_torch.kernels import (_build, ops, ref, ref_banded,
+                                         sweep_csr)
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -123,28 +135,40 @@ def main() -> int:
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    # A pick id out of range stops the sweep kernel with a device-side
+    # A pick id out of range stops a sweep kernel with a device-side
     # assert (it would otherwise read and write out of bounds).  The assert
-    # leaves its CUDA context unusable, so it runs in a child process,
-    # started before this process touches the card.
-    probe = (
-        "import sys, torch; sys.path.insert(0, 'src')\n"
-        "from repro_torch.kernels import ops\n"
-        "v = torch.ones((4, 2), device='cuda')\n"
-        "c = torch.zeros((4, 2), dtype=torch.int32, device='cuda')\n"
-        "x = torch.zeros((4, 1), device='cuda')\n"
-        "ops.sweep_rows_gs(v, c, x, x, torch.tensor([1, 4], device='cuda'))\n"
-        "torch.cuda.synchronize()\n")
-    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
-    said = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "r >= 0 && r < limit" in ln
-            or "device-side assert triggered" in ln]
-    check(proc.returncode != 0
-          and any("device-side assert triggered" in ln for ln in said),
-          "sweep_rows_gs with pick 4 of 4 rows stops at its device-side "
-          f"assert (child exit {proc.returncode}): "
-          + " | ".join(ln[-100:] for ln in said[:2]))
+    # leaves its CUDA context unusable, so each probe runs in a child
+    # process, both started together before this process touches the card.
+    head = ("import sys, torch; sys.path.insert(0, 'src')\n"
+            "from repro_torch.kernels import ops\n")
+    probes = {
+        "sweep_rows_gs with pick 4 of 4 rows": head + (
+            "v = torch.ones((4, 2), device='cuda')\n"
+            "c = torch.zeros((4, 2), dtype=torch.int32, device='cuda')\n"
+            "x = torch.zeros((4, 1), device='cuda')\n"
+            "ops.sweep_rows_gs(v, c, x, x, torch.tensor([1, 4], "
+            "device='cuda'))\n"
+            "torch.cuda.synchronize()\n"),
+        "banded_gs_sweep with block row 2 of 2": head + (
+            "t = torch.zeros((2, 3, 4, 4), device='cuda')\n"
+            "b = torch.zeros((8, 1), device='cuda')\n"
+            "xw = torch.zeros((16, 1), device='cuda')\n"
+            "ops.banded_gs_sweep(t, b, xw, torch.tensor([0, 2], "
+            "device='cuda'), block=4, bands=1)\n"
+            "torch.cuda.synchronize()\n")}
+    children = {what: subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for what, code in probes.items()}
+    for what, proc in children.items():
+        out, _ = proc.communicate(timeout=300)
+        said = [ln.strip() for ln in out.splitlines()
+                if "r >= 0 && r < limit" in ln
+                or "device-side assert triggered" in ln]
+        check(proc.returncode != 0
+              and any("device-side assert triggered" in ln for ln in said),
+              f"{what} stops at its device-side assert (child exit "
+              f"{proc.returncode}): " + " | ".join(ln[-100:]
+                                                   for ln in said[:2]))
     print(f"  torch.cuda.get_device_name(0)={torch.cuda.get_device_name(0)}",
           flush=True)
 
@@ -163,6 +187,19 @@ def main() -> int:
           f"n_rhs={K}): {time.perf_counter() - t0:.2f} s, sigma=["
           f"{float(lsq.sigma_min):.4f}, {float(lsq.sigma_max):.4f}]",
           flush=True)
+    t0 = time.perf_counter()
+    banded = block_banded_spd(SPD_N, block=BLOCK, bands=BANDS, n_rhs=K,
+                              seed=SEED)
+    torch.cuda.synchronize()
+    print(f"  block_banded_spd({SPD_N}, block={BLOCK}, bands={BANDS}, "
+          f"n_rhs={K}): {time.perf_counter() - t0:.2f} s, lam=["
+          f"{float(banded.lam_min):.4f}, {float(banded.lam_max):.4f}]",
+          flush=True)
+    # ELL keeps the `width` largest entries of each row: the true maximum
+    # count makes it exact (the default width=32 would truncate rows).
+    ell_width = int((spd.A != 0).sum(1).max())
+    print(f"  ELL width for the SPD problem (max nonzeros per row): "
+          f"{ell_width}", flush=True)
     # The same design with every 16th panel of 8 rows zeroed (rows with no
     # features): its CSR pattern has empty panels, so its matvec takes the
     # predicated kernel.  Zero rows of A have zero rows of b = A x_true.
@@ -187,6 +224,27 @@ def main() -> int:
               f"nnz={op.nnz} row_cap={op.row_cap} values={op.data.dtype} "
               f"indices={op.indices.dtype} empty panels="
               f"{int((op.panel_nnz() == 0).sum())}", flush=True)
+    for sd in (None, "bfloat16"):
+        t0 = time.perf_counter()
+        op = ops_by[("ell", sd)] = as_operator(spd.A, "ell", width=ell_width,
+                                               storage_dtype=sd)
+        torch.cuda.synchronize()
+        print(f"  ell {sd}: built from dense in {time.perf_counter() - t0:.3f}"
+              f" s; vals {tuple(op.vals.shape)} {op.vals.dtype}, cols "
+              f"{op.cols.dtype}", flush=True)
+        t0 = time.perf_counter()
+        op = ops_by[("banded", sd)] = as_operator(
+            banded.A, "banded", block=BLOCK, bands=BANDS, storage_dtype=sd)
+        torch.cuda.synchronize()
+        print(f"  banded {sd}: built from dense in "
+              f"{time.perf_counter() - t0:.3f} s; tiles "
+              f"{tuple(op.A_bands.shape)} {op.A_bands.dtype}", flush=True)
+    ell = ops_by[("ell", None)]
+    check(int((ell.vals != 0).sum()) == ops_by[("spd", None)].nnz,
+          f"ELL at width {ell_width} holds every nonzero of the SPD problem "
+          f"({ops_by[('spd', None)].nnz})")
+    check(torch.equal(ops_by[("banded", None)].to_dense(), banded.A),
+          "the band tiles reconstruct the block-banded matrix exactly")
 
     print("== kernels against their plain versions", flush=True)
     errs = {}
@@ -292,6 +350,81 @@ def main() -> int:
     spmv_check("bf16/i32", big, xb, "sliced")
     spmv_check("bf16/i32", big, xb, "sliced_prefetch")
 
+    def ell_check(tag, vals, cols, x):
+        y = ops.spmv_ell(vals, cols, x)
+        want = ref.spmv_ell_ref(vals, cols, x)
+        torch.cuda.synchronize()
+        scale = ref.spmv_ell_ref(vals.abs(), cols, x.abs())
+        err = (y - want).abs()
+        check(bool((err <= SPMV_RTOL * scale + SPMV_ATOL).all()),
+              f"spmv_ell {tag}: max|kernel - plain| = {float(err.max()):.3e} "
+              f"within {SPMV_RTOL:g}*(|A||x|) + {SPMV_ATOL:g}")
+        return y, float(err.max())
+
+    bv, bc = big.padded_rows()
+    ell_check("bf16/i32 n=40000", bv, bc, xb)
+
+    # The ELL and block-banded kernels at the main paths' shapes.  The
+    # banded sweep runs the first chunk (one sweep, nb picks) of a
+    # main-path pick stream.
+    nb = SPD_N // BLOCK
+    halo = BANDS * BLOCK
+    x_band = torch.randn((SPD_N, K), generator=gen, device=dev)
+    xw_band = torch.nn.functional.pad(x_band, (0, 0, halo, halo))
+    band_picks = draw_picks(ops_by[("banded", None)], "gs",
+                            BANDED_SWEEPS * nb, generator=gen)[:nb]
+    for sd in (None, "bfloat16"):
+        tag = "f32/i32" if sd is None else "bf16/i16"
+        op = ops_by[("ell", sd)]
+        _, errs[("spmv_ell", sd)] = ell_check(
+            f"{tag} n={SPD_N} width={ell_width} k={K}", op.vals, op.cols,
+            x_spd)
+
+        tag = "f32" if sd is None else "bf16"
+        op = ops_by[("banded", sd)]
+        y = ops.bbmv(op.A_bands, x_band, bands=BANDS, block=BLOCK)
+        want = ref.bbmv_ref(op.A_bands, x_band, bands=BANDS, block=BLOCK)
+        torch.cuda.synchronize()
+        scale = ref.bbmv_ref(op.A_bands.abs(), x_band.abs(), bands=BANDS,
+                             block=BLOCK)
+        err = (y - want).abs()
+        check(bool((err <= BBMV_RTOL * scale + BBMV_ATOL).all()),
+              f"bbmv {tag} nb={nb} block={BLOCK} bands={BANDS} k={K}: "
+              f"max|kernel - plain| = {float(err.max()):.3e} within "
+              f"{BBMV_RTOL:g}*(|A||x|) + {BBMV_ATOL:g} (largest ratio to "
+              f"|A||x| {float((err / scale.clamp(min=1e-30)).max()):.3e})")
+        errs[("bbmv", sd)] = float(err.max())
+        one = ops.bbmv(op.A_bands, x_band[:, :1].contiguous(), bands=BANDS,
+                       block=BLOCK)
+        check(torch.equal(one[:, 0], y[:, 0]),
+              f"bbmv {tag}: column 0 at k={K} bitwise equals k=1")
+
+        packed = op.packed_band_tiles()
+        got = ops.banded_gs_sweep(packed, banded.b, xw_band, band_picks,
+                                  block=BLOCK, bands=BANDS, beta=0.9)
+        want = ref_banded.banded_gs_sweep_ref(packed, banded.b, xw_band,
+                                              band_picks, block=BLOCK,
+                                              bands=BANDS, beta=0.9)
+        torch.cuda.synchronize()
+        e = rel(got, want)
+        check(e <= SWEEP_RTOL, f"banded_gs_sweep {tag} nb={nb} k={K} "
+              f"{nb} picks: rel err {e:.3e} <= {SWEEP_RTOL:g}")
+        errs[("banded_gs_sweep", sd)] = float((got - want).abs().max())
+        one = ops.banded_gs_sweep(packed, banded.b[:, :1].contiguous(),
+                                  xw_band[:, :1].contiguous(), band_picks,
+                                  block=BLOCK, bands=BANDS, beta=0.9)
+        check(torch.equal(one[:, 0], got[:, 0]),
+              f"banded_gs_sweep {tag}: column 0 at k={K} bitwise equals k=1")
+
+    # ELL windows of a matrix full of magnitude ties: the card's stable
+    # sort orders them as the CPU's (which the tests hold against JAX)
+    lap = laplacian_spd(24, device=dev)
+    gv, gc = ell_from_dense(lap.A, 5)
+    cv, cc = ell_from_dense(lap.A.cpu(), 5)
+    check(torch.equal(gv.cpu(), cv) and torch.equal(gc.cpu(), cc),
+          "ELL windows of laplacian_spd(24) (ties) equal on the card and "
+          "the CPU")
+
     # degenerate pick streams: empty (a no-op) and one row over and over
     op = ops_by[("spd", None)]
     vals, cols = op.padded_rows()
@@ -315,34 +448,80 @@ def main() -> int:
     check(e <= SWEEP_RTOL, f"small GS solve, card vs CPU: rel err {e:.3e}")
     check(torch.allclose(r_gpu.resid.cpu(), r_cpu.resid, rtol=1e-4,
                          atol=1e-5), "small GS solve residuals, card vs CPU")
+    small_b = block_banded_spd(256, block=32, bands=2, n_rhs=4, seed=3,
+                               device=dev)
+    for fmt, prob, kw, top in (
+            ("ell", small, dict(width=12), 256),
+            ("banded", small_b, dict(block=32, bands=2), 8)):
+        prob_cpu = type(prob)(*(t.cpu() for t in prob))
+        picks = torch.randint(0, top, (1024,), generator=gen, device=dev)
+        r_gpu = solve(prob, format=fmt, schedule=sched, picks=picks, **kw)
+        r_cpu = solve(prob_cpu, format=fmt, schedule=sched,
+                      picks=picks.cpu(), **kw)
+        e = rel(r_gpu.x.cpu(), r_cpu.x)
+        check(e <= SWEEP_RTOL and torch.allclose(
+            r_gpu.resid.cpu(), r_cpu.resid, rtol=1e-4, atol=1e-5),
+            f"small {fmt} GS solve, card vs CPU: rel err {e:.3e}, "
+            "residuals within rtol 1e-4")
 
     print("== main path", flush=True)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    gs = solve(spd, format="csr", generator=torch.Generator(dev).manual_seed(1),
-               schedule=Schedule(num_iters=GS_SWEEPS * SPD_N,
-                                 record_every=SPD_N))
-    torch.cuda.synchronize()
-    gs_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rk = solve(lsq, format="csr", generator=torch.Generator(dev).manual_seed(2),
-               schedule=Schedule(num_iters=RK_SWEEPS * LSQ_M,
-                                 record_every=LSQ_M))
-    torch.cuda.synchronize()
-    rk_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rkh = solve(lsq_holes, format="csr",
-                generator=torch.Generator(dev).manual_seed(3),
-                schedule=Schedule(num_iters=LSQ_M, record_every=LSQ_M))
-    torch.cuda.synchronize()
-    rkh_wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    print(f"  launches on the main path: {launches}", flush=True)
-    print(f"  wall: GS {GS_SWEEPS} sweeps {gs_wall:.3f} s | RK {RK_SWEEPS} "
-          f"sweeps {rk_wall:.3f} s | RK on the empty-panel design, 1 sweep "
-          f"{rkh_wall:.3f} s (operator build included)", flush=True)
+    # Each path runs with the launch counters set to 0 just before it and
+    # read just after: it must have launched exactly its kernels, once per
+    # record chunk (the sweep) and once per matvec of record_metrics (two
+    # per GS record: A e and A x; one per RK record: A x), and nothing
+    # else, so no chunk or record fell back to a plain version.
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    walls = {}
+
+    def drive(tag, expect, run):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        got = ops.launch_counts()
+        print(f"  {tag}: {walls[tag]:.3f} s wall (operator build included), "
+              f"launches {({k: v for k, v in got.items() if v})}", flush=True)
+        check(got == {name: expect.get(name, 0) for name in ops.KERNELS},
+              f"{tag} launched exactly {expect}")
+        for name, n in got.items():
+            launches[name] += n
+        return res
+
+    def gs_sched(sweeps, n):
+        return Schedule(num_iters=sweeps * n, record_every=n)
+
+    gs = drive(f"CSR GS, {GS_SWEEPS} sweeps",
+               dict(sweep_rows_gs=GS_SWEEPS, spmv_csr_sliced=2 * GS_SWEEPS),
+               lambda: solve(spd, format="csr",
+                             generator=torch.Generator(dev).manual_seed(1),
+                             schedule=gs_sched(GS_SWEEPS, SPD_N)))
+    rk = drive(f"CSR RK, {RK_SWEEPS} sweeps",
+               dict(sweep_rows_rk=RK_SWEEPS, spmv_csr_sliced=RK_SWEEPS),
+               lambda: solve(lsq, format="csr",
+                             generator=torch.Generator(dev).manual_seed(2),
+                             schedule=gs_sched(RK_SWEEPS, LSQ_M)))
+    rkh = drive("CSR RK on the empty-panel design, 1 sweep",
+                dict(sweep_rows_rk=1, spmv_csr_sliced_prefetch=1),
+                lambda: solve(lsq_holes, format="csr",
+                              generator=torch.Generator(dev).manual_seed(3),
+                              schedule=gs_sched(1, LSQ_M)))
+    eg = drive(f"ELL GS (width {ell_width}), {ELL_SWEEPS} sweeps",
+               dict(sweep_rows_gs=ELL_SWEEPS, spmv_ell=2 * ELL_SWEEPS),
+               lambda: solve(spd, format="ell", width=ell_width,
+                             generator=torch.Generator(dev).manual_seed(1),
+                             schedule=gs_sched(ELL_SWEEPS, SPD_N)))
+    bg = drive(f"banded GS (block {BLOCK}, bands {BANDS}), {BANDED_SWEEPS} "
+               "sweeps", dict(banded_gs_sweep=BANDED_SWEEPS,
+                              bbmv=2 * BANDED_SWEEPS),
+               lambda: solve(banded, format="banded", block=BLOCK,
+                             bands=BANDS,
+                             generator=torch.Generator(dev).manual_seed(5),
+                             schedule=gs_sched(BANDED_SWEEPS, nb)))
+    print(f"  launches on the main paths, all together: {launches}",
+          flush=True)
     for name in ops.KERNELS:
-        check(launches[name] > 0, f"main path launched {name} "
+        check(launches[name] > 0, f"main paths launched {name} "
               f"({launches[name]} times)")
 
     def monotone(tag, err, err0):
@@ -355,14 +534,21 @@ def main() -> int:
     def dense_resid(tag, prob, res):
         want = torch.linalg.vector_norm(prob.b - prob.A @ res.x, dim=0)
         e = float(((res.resid[-1] - want).abs() / want).max())
-        check(e <= RESID_RTOL, f"{tag}: final residual from the SpMV kernel "
+        check(e <= RESID_RTOL, f"{tag}: final residual from the matvec kernel "
               f"vs dense torch.matmul, max rel diff {e:.3e} <= "
               f"{RESID_RTOL:g}")
 
-    check(gs.x.shape == (SPD_N, K) and bool(torch.isfinite(gs.x).all()),
-          f"GS iterate finite, shape {tuple(gs.x.shape)}")
-    monotone("GS (A-norm)", gs.err_sq, a_norm_sq(spd.A, spd.x_star))
-    dense_resid("GS", spd, gs)
+    for tag, prob, res in (("GS", spd, gs), ("ELL GS", spd, eg),
+                           ("banded GS", banded, bg)):
+        check(res.x.shape == (SPD_N, K) and bool(torch.isfinite(res.x).all()),
+              f"{tag} iterate finite, shape {tuple(res.x.shape)}")
+        monotone(f"{tag} (A-norm)", res.err_sq, a_norm_sq(prob.A, prob.x_star))
+        dense_resid(tag, prob, res)
+    # the ELL and CSR solves share the problem, the generator seed and so
+    # the picks: they differ only in the order each row window is summed
+    e = rel(eg.x, gs.x)
+    check(e <= SWEEP_RTOL, f"ELL GS and CSR GS, same picks: rel err of x "
+          f"{e:.3e} <= {SWEEP_RTOL:g}")
     check(rk.x.shape == (LSQ_N, K) and bool(torch.isfinite(rk.x).all()),
           f"RK iterate finite, shape {tuple(rk.x.shape)}")
     monotone("RK (Euclidean)", rk.err_sq, (lsq.x_star ** 2).sum(0))
@@ -370,10 +556,15 @@ def main() -> int:
     monotone("RK, empty-panel design", rkh.err_sq,
              (lsq_holes.x_star ** 2).sum(0))
     dense_resid("RK, empty-panel design", lsq_holes, rkh)
-    rel_err = (gs.err_sq[-1] / a_norm_sq(spd.A, spd.x_star)).mean()
-    print(f"  GS mean relative A-norm error after {GS_SWEEPS} sweeps: "
-          f"{float(rel_err):.4e}; RK mean relative error after {RK_SWEEPS} "
-          f"sweeps: {float((rk.err_sq[-1] / (lsq.x_star ** 2).sum(0)).mean()):.4e}",
+
+    def a_rel(prob, res):
+        return float((res.err_sq[-1] / a_norm_sq(prob.A, prob.x_star)).mean())
+
+    print(f"  mean relative A-norm error: CSR GS {a_rel(spd, gs):.4e} and "
+          f"ELL GS {a_rel(spd, eg):.4e} after {GS_SWEEPS} sweeps, banded GS "
+          f"{a_rel(banded, bg):.4e} after {BANDED_SWEEPS}; RK mean relative "
+          f"error after {RK_SWEEPS} sweeps: "
+          f"{float((rk.err_sq[-1] / (lsq.x_star ** 2).sum(0)).mean()):.4e}",
           flush=True)
 
     print(f"== timing (CUDA events, f32/i32 storage, k={K})", flush=True)
@@ -512,6 +703,94 @@ def main() -> int:
     lines.append(spmv_entry("spmv_csr_sliced_prefetch", holes, x_lsq,
                             errs["prefetch_holes"],
                             "src/repro/kernels/spmv_csr.py:327"))
+
+    # ELL matvec: the SPD problem's ELL operator; its library yardstick is
+    # torch.sparse.mm on CSR over the same nonzeros.  Bytes: the stored
+    # windows (every slot is read), x once, y once; flops: 2 per nonzero
+    # per column.
+    op = ops_by[("ell", None)]
+    run = functools.partial(ops.spmv_ell, op.vals, op.cols, x_spd)
+    ms = cuda_ms(run, 50)
+    plain_ms = cuda_ms(functools.partial(ref.spmv_ell_ref, op.vals, op.cols,
+                                         x_spd), 5)
+    lib, y_lib = library_spmv(ops_by[("spd", None)], x_spd)
+    check(torch.allclose(y_lib, run(), rtol=1e-4, atol=1e-4),
+          "spmv_ell: torch.sparse.mm agrees with the kernel")
+    lib_ms = cuda_ms(lib, 50)
+    nnz = ops_by[("spd", None)].nnz
+    b_ms, by = bound_ms(op.vals.numel() * (val_b + idx_b) + 2 * SPD_N * K * 4,
+                        2.0 * nnz * K)
+    print(f"  spmv_ell n={SPD_N} width={ell_width} nnz={nnz}: {ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; torch.sparse.mm {lib_ms:.4f} ms; bound "
+          f"{b_ms:.5f} ms ({by})", flush=True)
+    lines.append(dict(name="spmv_ell", route="cuda",
+                      source="src/repro_torch/csrc/spmv_ell.cu",
+                      replaces="src/repro/kernels/spmv_ell.py:46",
+                      launches=launches["spmv_ell"],
+                      max_abs_err=errs[("spmv_ell", None)], ms=ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=lib_ms))
+
+    # bbmv: the banded operator's tiles.  Bytes: the tiles inside the
+    # matrix (the kernel never reads the others), x once, y once; flops:
+    # 2 * block^2 * k per such tile.  Library yardstick: torch.sparse BSR
+    # with the same 128 x 128 blocks.
+    op = ops_by[("banded", None)]
+    run = functools.partial(ops.bbmv, op.A_bands, x_band, bands=BANDS,
+                            block=BLOCK)
+    ms = cuda_ms(run, 50)
+    plain_ms = cuda_ms(functools.partial(ref.bbmv_ref, op.A_bands, x_band,
+                                         bands=BANDS, block=BLOCK), 3)
+    tiles = int(ref.band_valid(nb, BANDS, dev).sum())
+    b_ms, by = bound_ms(tiles * BLOCK * BLOCK * val_b + 2 * SPD_N * K * 4,
+                        2.0 * tiles * BLOCK * BLOCK * K)
+    try:
+        with warnings.catch_warnings():     # "sparse BSR is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            A_bsr = banded.A.to_sparse_bsr((BLOCK, BLOCK))
+            y_lib = A_bsr @ x_band
+        check(torch.allclose(y_lib, run(), rtol=1e-4, atol=1e-4),
+              "bbmv: torch.sparse BSR matmul agrees with the kernel")
+        lib_ms = cuda_ms(lambda: A_bsr @ x_band, 50)
+        lib_note = f"torch.sparse BSR {lib_ms:.4f} ms"
+    except (RuntimeError, NotImplementedError) as e:
+        lib_ms = None
+        lib_note = f"torch.sparse BSR not available here ({str(e)[:120]})"
+    print(f"  bbmv nb={nb} block={BLOCK} bands={BANDS} ({tiles} tiles): "
+          f"{ms:.4f} ms; plain {plain_ms:.4f} ms; {lib_note}; bound "
+          f"{b_ms:.5f} ms ({by})", flush=True)
+    lines.append(dict(name="bbmv", route="cuda",
+                      source="src/repro_torch/csrc/bbmv.cu",
+                      replaces="src/repro/kernels/bbmv.py:53",
+                      launches=launches["bbmv"],
+                      max_abs_err=errs[("bbmv", None)], ms=ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=lib_ms))
+
+    # banded_gs_sweep: one main-path chunk (nb picks).  Bytes, by the
+    # sweeps' rule: per pick its 2*bands+1 tiles, its b block and its id,
+    # plus the window once in and once out; flops: 2 * block^2 * k per
+    # tile read.  No library call computes this serial chain.
+    packed = op.packed_band_tiles()
+    run = functools.partial(ops.banded_gs_sweep, packed, banded.b, xw_band,
+                            band_picks, block=BLOCK, bands=BANDS)
+    ms = cuda_ms(run, 10)
+    plain_ms = cuda_ms(functools.partial(
+        ref_banded.banded_gs_sweep_ref, packed, banded.b, xw_band,
+        band_picks, block=BLOCK, bands=BANDS), 1)
+    per_pick = (2 * BANDS + 1) * BLOCK * BLOCK * val_b + BLOCK * K * 4 + 4
+    b_ms, by = bound_ms(nb * per_pick + 2 * xw_band.numel() * 4,
+                        2.0 * nb * (2 * BANDS + 1) * BLOCK * BLOCK * K)
+    print(f"  banded_gs_sweep, one main-path chunk ({nb} picks): {ms:.4f} ms "
+          f"({ms * 1e3 / nb:.3f} us/pick); plain {plain_ms:.2f} ms; bound "
+          f"{b_ms:.5f} ms ({by}); no library call", flush=True)
+    lines.append(dict(name="banded_gs_sweep", route="cuda",
+                      source="src/repro_torch/csrc/banded_gs.cu",
+                      replaces="src/repro/kernels/banded_gs.py:93",
+                      launches=launches["banded_gs_sweep"],
+                      max_abs_err=errs[("banded_gs_sweep", None)], ms=ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=None))
 
     print(smi, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)

@@ -7,19 +7,25 @@ neither JAX nor ``repro``.  Entry points run on the card unless the caller
 passes CPU tensors or ``device="cpu"``; on the CPU every kernel wrapper
 runs its plain PyTorch version.
 """
-from repro_torch.core import (CsrOp, DenseOp, LSQProblem, SPDProblem,
-                              Schedule, SolveResult, a_norm_sq, as_operator,
-                              random_sparse_lsq, random_sparse_spd, solve)
+from repro_torch.core import (BlockBandedOp, CsrOp, DenseOp, EllOp,
+                              LSQProblem, SPDProblem, Schedule, SolveResult,
+                              a_norm_sq, as_operator, block_banded_spd,
+                              laplacian_spd, random_sparse_lsq,
+                              random_sparse_spd, solve)
 
 __all__ = [
+    "BlockBandedOp",
     "CsrOp",
     "DenseOp",
+    "EllOp",
     "LSQProblem",
     "SPDProblem",
     "Schedule",
     "SolveResult",
     "a_norm_sq",
     "as_operator",
+    "block_banded_spd",
+    "laplacian_spd",
     "random_sparse_lsq",
     "random_sparse_spd",
     "solve",

@@ -3,9 +3,10 @@ identical inputs.
 
 The reference's SPD ``x_star``/``b`` come from ``jax.random`` and cannot be
 reproduced with a ``torch.Generator``; parity tests take them, as numpy,
-from the reference problem.  ``csr_from_arrays`` takes the arrays and
-layout of a reference ``CsrOp`` as they are, so a test can also pin the
-layout.
+from the reference problem.  ``csr_from_arrays``, ``ell_from_arrays`` and
+``banded_from_arrays`` take the arrays (and layout) of a reference
+``CsrOp``/``EllOp``/``BlockBandedOp`` as they are, so a test can also pin
+the layout.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.kaczmarz import LSQProblem
-from repro_torch.core.operators import CsrOp
+from repro_torch.core.operators import BlockBandedOp, CsrOp, EllOp
 from repro_torch.core.spd import SPDProblem
 
 
@@ -72,3 +73,29 @@ def csr_from_arrays(data, indices, row_id, row_start, row_nnz, *, shape, nnz,
                  _tensor(row_nnz, device), shape=shape, nnz=int(nnz),
                  row_cap=int(row_cap), rows_per_panel=int(rows_per_panel),
                  panel_width=int(panel_width))
+
+
+def ell_from_arrays(vals, cols, *, device) -> EllOp:
+    """An ``EllOp`` from the ``vals``/``cols`` (n, width) of a reference
+    ``EllOp``.  The kernels gather through ``cols`` with raw pointers, so
+    every column id must lie in [0, n)."""
+    cols_np = np.asarray(cols)
+    if np.ndim(vals) != 2 or np.shape(vals) != cols_np.shape:
+        raise ValueError(f"vals {np.shape(vals)} and cols {cols_np.shape} "
+                         "must be equal 2-D shapes")
+    n = cols_np.shape[0]
+    if cols_np.size and not (0 <= cols_np.min() and cols_np.max() < n):
+        raise ValueError(f"column ids outside [0, {n})")
+    return EllOp(_tensor(vals, device), _tensor(cols, device))
+
+
+def banded_from_arrays(A_bands, bands: int, *, device) -> BlockBandedOp:
+    """A ``BlockBandedOp`` from the tiles (nb, 2*bands+1, block, block) of
+    a reference ``BlockBandedOp``.  The tile shape fixes every offset the
+    kernels compute, so it is checked against ``bands`` here."""
+    shape = np.shape(A_bands)
+    if (len(shape) != 4 or shape[1] != 2 * bands + 1 or shape[2] != shape[3]
+            or bands < 0):
+        raise ValueError(f"A_bands {shape} is not (nb, {2 * bands + 1}, "
+                         "block, block)")
+    return BlockBandedOp(_tensor(A_bands, device), bands=int(bands))

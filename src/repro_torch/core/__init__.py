@@ -7,21 +7,28 @@ from repro_torch.core.engine import (Schedule, SolveResult, draw_picks,
                                      record_metrics, sample_rows, solve,
                                      solve_sequential)
 from repro_torch.core.kaczmarz import LSQProblem, random_sparse_lsq, row_norms_sq
-from repro_torch.core.operators import CsrOp, DenseOp, as_operator
-from repro_torch.core.spd import (SPDProblem, a_norm_sq, random_sparse_spd,
-                                  to_unit_diagonal)
+from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp, EllOp,
+                                        as_operator)
+from repro_torch.core.spd import (SPDProblem, a_norm_sq, block_banded_spd,
+                                  ell_from_dense, laplacian_spd,
+                                  random_sparse_spd, to_unit_diagonal)
 
 __all__ = [
+    "BlockBandedOp",
     "CsrOp",
     "DenseOp",
+    "EllOp",
     "LSQProblem",
     "SPDProblem",
     "Schedule",
     "SolveResult",
     "a_norm_sq",
     "as_operator",
+    "block_banded_spd",
     "draw_picks",
+    "ell_from_dense",
     "engine",
+    "laplacian_spd",
     "random_sparse_lsq",
     "random_sparse_spd",
     "record_metrics",

@@ -9,9 +9,12 @@ Two actions over one pick stream:
   proportional to ``||A_i||^2``.
 
 Each record chunk is one sweep call on the operator (``op.gs_sweep`` /
-``op.rk_sweep``): on a CSR operator on the card that is one launch of the
-sweep kernel, on the CPU its plain version; a dense operator has no kernel
-and steps through its picks in plain PyTorch.
+``op.rk_sweep``): on a CSR, ELL or block-banded operator on the card that
+is one launch of its sweep kernel, on the CPU its plain version; a dense
+operator has no kernel and steps through its picks in plain PyTorch.  On
+the block-banded format a GS pick is a whole block row (``op.nb``
+directions); it has no sequential Kaczmarz action (the reference's banded
+Kaczmarz runs only in its distributed engine).
 
 Picks are drawn with a ``torch.Generator``: a different stream from the
 reference's ``jax.random`` threefry key.  ``picks=`` overrides the drawn
@@ -19,7 +22,7 @@ stream, which is how the tests feed both packages the same directions.
 
 Not ported yet: the bounded-delay simulator (ROADMAP queue 1 item 6), the
 distributed engine (item 8), the serving unit (item 4) and block GS with
-``gs_block > 1``.
+``gs_block > 1`` on the dense and CSR formats.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.operators import as_operator
+from repro_torch.core.operators import BlockBandedOp, as_operator
 
 
 class SolveResult(NamedTuple):
@@ -111,13 +114,22 @@ def sample_rows(rn: torch.Tensor, num: int, *,
     return torch.multinomial(rn, num, replacement=True, generator=generator)
 
 
+def num_directions(op, action: str) -> int:
+    """How many directions a pick chooses from: block rows for GS on the
+    block-banded format, rows otherwise."""
+    if action == "gs" and isinstance(op, BlockBandedOp):
+        return op.nb
+    return op.shape[0]
+
+
 def draw_picks(op, action: str, num_iters: int, *,
                generator: torch.Generator) -> torch.Tensor:
-    """The sequential engine's direction stream: GS coordinates uniform,
-    RK rows ∝ ||A_i||^2."""
+    """The sequential engine's direction stream: GS directions (coordinates,
+    or block rows of a block-banded operator) uniform, RK rows ∝
+    ||A_i||^2."""
     if action == "gs":
-        return torch.randint(0, op.shape[0], (num_iters,), generator=generator,
-                             device=op.device)
+        return torch.randint(0, num_directions(op, action), (num_iters,),
+                             generator=generator, device=op.device)
     if action == "rk":
         return sample_rows(op.row_norms_sq(), num_iters, generator=generator)
     raise ValueError(f"unknown action: {action!r}")
@@ -144,6 +156,11 @@ def solve_sequential(
     """
     if action not in ("gs", "rk"):
         raise ValueError(f"unknown action: {action!r}")
+    if action == "rk" and isinstance(op, BlockBandedOp):
+        raise NotImplementedError(
+            "sequential RK needs per-row access (dense, ELL or CSR); the "
+            "banded Kaczmarz action belongs to the distributed engine, not "
+            "ported yet (ROADMAP queue 1 item 8)")
     rec = resolve_record_every(num_iters, record_every)
     if picks is None:
         if generator is None:
@@ -155,9 +172,10 @@ def solve_sequential(
             raise ValueError(f"picks has shape {tuple(picks.shape)}, "
                              f"expected ({num_iters},)")
         lo, hi = (int(v) for v in torch.aminmax(picks))
-        if lo < 0 or hi >= op.shape[0]:
+        top = num_directions(op, action)
+        if lo < 0 or hi >= top:
             raise IndexError(f"pick ids span [{lo}, {hi}], allowed "
-                             f"[0, {op.shape[0]})")
+                             f"[0, {top})")
     rn = op.row_norms_sq() if action == "rk" else None
     norm = "A" if action == "gs" else "euclid"
     x = x0
@@ -185,6 +203,9 @@ def solve(
     generator: torch.Generator | None = None,
     picks: torch.Tensor | None = None,
     beta: float = 1.0,
+    block: int = 128,
+    bands: int = 2,
+    width: int = 32,
     rows_per_panel: int | None = None,
     storage_dtype=None,
     x0: torch.Tensor | None = None,
@@ -194,15 +215,19 @@ def solve(
 
     ``problem`` is an ``SPDProblem`` (GS action by default) or an
     ``LSQProblem`` (Kaczmarz by default).  ``format`` picks the operator
-    ("dense" or "csr"), ``rows_per_panel`` the CSR panel layout (``None``:
-    8), ``storage_dtype`` the coefficient precision (``None`` keeps the
-    input dtype; the iterate, ``b`` and all accumulation stay f32).  The
-    direction stream comes from ``generator`` or, when given, ``picks``.
+    ("dense", "banded", "ell" or "csr"); ``block``/``bands`` shape the
+    banded format, ``width`` the ELL format (a row with more nonzeros keeps
+    only its ``width`` largest, so pass the true maximum), ``rows_per_panel``
+    the CSR panel layout (``None``: 8), ``storage_dtype`` the coefficient
+    precision (``None`` keeps the input dtype; the iterate, ``b`` and all
+    accumulation stay f32).  The direction stream comes from ``generator``
+    or, when given, ``picks``.
     """
     if action is None:
         action = "rk" if hasattr(problem, "sigma_min") else "gs"
     schedule.validate()
-    op = as_operator(problem.A, format, rows_per_panel=rows_per_panel or 8,
+    op = as_operator(problem.A, format, block=block, bands=bands, width=width,
+                     rows_per_panel=rows_per_panel or 8,
                      storage_dtype=storage_dtype)
     if x0 is None:
         # From b and the operator, not from x_star (which may be None): the

@@ -1,25 +1,32 @@
-"""Matrix formats of the solver engine (port of ``repro/core/operators.py``,
-dense and CSR).
+"""Matrix formats of the solver engine (port of ``repro/core/operators.py``:
+dense, block-banded, ELL and CSR).
 
 Operators are plain classes holding tensors on one device.  They answer
 what the engine's actions need:
 
-* ``matvec(x)``        — full ``A @ x`` (the CSR kernel on the card, its
-                         plain version on the CPU);
+* ``matvec(x)``        — full ``A @ x`` (the format's matvec kernel on the
+                         card, its plain version on the CPU);
 * ``row_norms_sq()``   — per-row ``||A_r||^2`` in f32;
 * ``gs_sweep`` / ``rk_sweep`` — a whole run of picks, one coordinate-GS or
-                         Kaczmarz step each (CSR: one kernel launch).
+                         Kaczmarz step each (sparse formats: one kernel
+                         launch); the block-banded format steps whole
+                         block rows and has no sequential Kaczmarz sweep.
 
-ELL and block-banded storage are not ported yet (ROADMAP queue 1 item 5).
+The distributed engine's operator methods (``row_panel``,
+``residual_panel``, ``slab_neighbors``, ``shard_spec``) are not ported yet
+(ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.spd import ell_from_dense
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bbmv import dense_to_bands, pack_bands_local
 
-__all__ = ["CsrOp", "DenseOp", "as_operator", "canonical_storage_dtype"]
+__all__ = ["BlockBandedOp", "CsrOp", "DenseOp", "EllOp", "as_operator",
+           "canonical_storage_dtype"]
 
 # The storage-precision axis (DESIGN.md §7): coefficients may be held in
 # bf16 while row norms, sampling and the iterate stay f32; the kernels
@@ -97,6 +104,159 @@ class DenseOp:
 
     def to_dense(self) -> torch.Tensor:
         return self.A
+
+
+class BlockBandedOp:
+    """Block-banded operator: tiles ``A_bands[nb, 2*bands+1, block, block]``
+    (``kernels/bbmv.py``), tile ``d`` of block row ``i`` at block column
+    ``i + d - bands``; tiles outside the matrix are zero.  A block row only
+    reads x within ``bands * block`` rows of itself."""
+
+    def __init__(self, A_bands: torch.Tensor, *, bands: int):
+        self.A_bands = A_bands
+        self.bands = bands
+        self._packed: torch.Tensor | None = None
+
+    @classmethod
+    def from_dense(cls, A: torch.Tensor, *, block: int, bands: int,
+                   storage_dtype=None) -> "BlockBandedOp":
+        """The block band of dense ``A``, packed on A's device; entries
+        outside the band are dropped."""
+        tiles = dense_to_bands(A, bands=bands, block=block)
+        dt = canonical_storage_dtype(storage_dtype)
+        if dt is not None:
+            tiles = tiles.to(dt)
+        return cls(tiles, bands=bands)
+
+    @property
+    def nb(self) -> int:
+        return self.A_bands.shape[0]
+
+    @property
+    def block(self) -> int:
+        return self.A_bands.shape[2]
+
+    @property
+    def width(self) -> int:
+        return self.A_bands.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.nb * self.block
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n, self.n)
+
+    @property
+    def device(self) -> torch.device:
+        return self.A_bands.device
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``A @ x`` through the block-banded matvec kernel."""
+        return ops.bbmv(self.A_bands, x, bands=self.bands, block=self.block)
+
+    def packed_band_tiles(self) -> torch.Tensor:
+        """The tiles with border tiles zeroed, as the fused sweep reads
+        them (memoized)."""
+        if self._packed is None:
+            self._packed = pack_bands_local(self.A_bands, self.bands)
+        return self._packed
+
+    def gs_sweep(self, b, x, picks, *, beta: float = 1.0) -> torch.Tensor:
+        """Fused sequential block-GS sweep: one step per picked block row,
+        on x padded with ``bands`` zero blocks a side; returns a new x."""
+        halo = self.bands * self.block
+        xw = torch.nn.functional.pad(x, (0, 0, halo, halo))
+        xw = ops.banded_gs_sweep(self.packed_band_tiles(), b, xw, picks,
+                                 block=self.block, bands=self.bands,
+                                 beta=beta)
+        return xw[halo:halo + self.n]
+
+    def row_norms_sq(self) -> torch.Tensor:
+        """Per-row ||A_i||² from the tiles, shaped (nb, block) — always
+        f32 whatever the storage."""
+        t = self.A_bands.float()
+        return (t * t).sum(dim=(1, 3))
+
+    def to_dense(self) -> torch.Tensor:
+        nb, bl = self.nb, self.block
+        out = torch.zeros((nb, bl, nb, bl), dtype=self.A_bands.dtype,
+                          device=self.device)
+        valid = ref.band_valid(nb, self.bands, self.device)
+        i, d = valid.nonzero(as_tuple=True)
+        out.permute(0, 2, 1, 3)[i, i + d - self.bands] = self.A_bands[i, d]
+        return out.reshape(self.n, self.n)
+
+
+class EllOp:
+    """Fixed-width ELLPACK operator: ``vals``/``cols`` of shape (n, width),
+    per-row windows with global column ids, padding slots holding value 0
+    and the row's own index.  ELL already is the padded-row form the sweep
+    kernels read."""
+
+    def __init__(self, vals: torch.Tensor, cols: torch.Tensor):
+        self.vals = vals
+        self.cols = cols
+
+    @classmethod
+    def from_dense(cls, A: torch.Tensor, *, width: int,
+                   storage_dtype=None) -> "EllOp":
+        """The ``width`` largest-magnitude entries of each row of ``A``
+        (``spd.ell_from_dense``; exact when no row has more nonzeros).
+        ``storage_dtype`` rounds the values; column ids narrow to int16
+        alongside when every id fits."""
+        vals, cols = ell_from_dense(A, width)
+        dt = canonical_storage_dtype(storage_dtype)
+        if dt is not None:
+            vals = vals.to(dt)
+            cols = cols.to(_index_dtype(dt, A.shape[1]))
+        return cls(vals, cols)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        n = self.vals.shape[0]
+        return (n, n)
+
+    @property
+    def width(self) -> int:
+        return self.vals.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """``A @ x`` through the ELL matvec kernel."""
+        return ops.spmv_ell(self.vals, self.cols, x)
+
+    def row_norms_sq(self) -> torch.Tensor:
+        """Per-row ||A_i||² — always f32."""
+        v = self.vals.float()
+        return (v * v).sum(1)
+
+    def padded_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.vals, self.cols
+
+    def gs_sweep(self, b, x, picks, *, beta: float = 1.0,
+                 write_base: int = 0) -> torch.Tensor:
+        """Fused sequential coordinate-GS sweep over the stored windows;
+        returns a new x."""
+        return ops.sweep_rows_gs(self.vals, self.cols, b, x, picks, beta=beta,
+                                 write_base=write_base)
+
+    def rk_sweep(self, b, rn, x, picks, *, beta: float = 1.0) -> torch.Tensor:
+        """Fused sequential Kaczmarz sweep over the stored windows; ``rn``
+        is the caller's row-norm vector (the divisor).  Returns a new x."""
+        return ops.sweep_rows_rk(self.vals, self.cols, b, rn, x, picks,
+                                 beta=beta)
+
+    def to_dense(self) -> torch.Tensor:
+        n = self.vals.shape[0]
+        rows = torch.arange(n, device=self.device)[:, None].expand_as(self.cols)
+        out = torch.zeros((n, n), dtype=self.vals.dtype, device=self.device)
+        return out.index_put_((rows, self.cols.long()), self.vals,
+                              accumulate=True)
 
 
 class CsrOp:
@@ -312,10 +472,14 @@ class CsrOp:
                               self.data, accumulate=True)
 
 
-def as_operator(A: torch.Tensor, format: str = "dense", *,
-                rows_per_panel: int = 8, storage_dtype=None):
+def as_operator(A: torch.Tensor, format: str = "dense", *, block: int = 128,
+                bands: int = 2, width: int = 32, rows_per_panel: int = 8,
+                storage_dtype=None):
     """Build an operator of the requested ``format`` from a dense matrix.
 
+    ``block``/``bands`` shape the banded format, ``width`` the ELL format
+    (rows with more nonzeros keep their ``width`` largest: pass the true
+    maximum for an exact operator), ``rows_per_panel`` the CSR panels.
     ``storage_dtype`` ("float32"/"bfloat16"/None) selects the coefficient
     storage precision; ``None`` keeps the input dtype.  The iterate, row
     norms and every kernel accumulator stay f32 regardless.
@@ -323,11 +487,12 @@ def as_operator(A: torch.Tensor, format: str = "dense", *,
     dt = canonical_storage_dtype(storage_dtype)
     if format == "dense":
         return DenseOp(A if dt is None else A.to(dt))
+    if format == "banded":
+        return BlockBandedOp.from_dense(A, block=block, bands=bands,
+                                        storage_dtype=storage_dtype)
+    if format == "ell":
+        return EllOp.from_dense(A, width=width, storage_dtype=storage_dtype)
     if format == "csr":
         return CsrOp.from_dense(A, rows_per_panel=rows_per_panel,
                                 storage_dtype=storage_dtype)
-    if format in ("ell", "banded"):
-        raise NotImplementedError(
-            f"format={format!r} is not ported yet (ROADMAP queue 1 item 5: "
-            "ELL and block-banded formats)")
     raise ValueError(f"unknown operator format: {format!r}")

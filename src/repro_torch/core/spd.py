@@ -104,6 +104,78 @@ def random_sparse_spd(
     return _finish(A, n_rhs, seed, device)
 
 
+def laplacian_spd(side: int, *, shift: float = 1e-2, n_rhs: int = 1,
+                  seed: int = 0, device=None) -> SPDProblem:
+    """2-D grid Laplacian + shift, unit-diagonal-normalized.
+
+    Ill-conditioned as ``side`` grows (kappa ~ side^2 / shift).  Every
+    off-diagonal entry is the same, so its rows are full of magnitude ties
+    (the case ``ell_from_dense`` must order as the reference does).
+    """
+    device = resolve_device(device)
+    n = side * side
+    A = np.zeros((n, n))
+    for i in range(side):
+        for j in range(side):
+            p = i * side + j
+            A[p, p] = 4.0 + shift
+            for di, dj in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+                q_i, q_j = i + di, j + dj
+                if 0 <= q_i < side and 0 <= q_j < side:
+                    A[p, q_i * side + q_j] = -1.0
+    return _finish(A, n_rhs, seed, device)
+
+
+def block_banded_spd(n: int, *, block: int = 128, bands: int = 2,
+                     offdiag: float = 0.9, n_rhs: int = 1, seed: int = 0,
+                     device=None) -> SPDProblem:
+    """Block-banded SPD: nonzeros in ``bands`` blocks of width ``block`` on
+    each side of the diagonal, identity diagonal blocks.  The host
+    construction is the reference's, line for line."""
+    if n % block:
+        raise ValueError(f"n ({n}) must be a multiple of block ({block})")
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    nb = n // block
+    M = np.zeros((n, n))
+    for bi in range(nb):
+        for bj in range(max(0, bi - bands), min(nb, bi + bands + 1)):
+            if bi == bj:
+                continue
+            blk = rng.standard_normal((block, block)) / block
+            M[bi * block:(bi + 1) * block, bj * block:(bj + 1) * block] = blk
+    M = (M + M.T) / 2.0
+    np.fill_diagonal(M, 0.0)
+    s = np.abs(M).sum(axis=1).max()
+    M *= offdiag / max(s, 1e-30)
+    A = np.eye(n) + M
+    return _finish(A, n_rhs, seed, device)
+
+
+def ell_from_dense(A: torch.Tensor,
+                   width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-width ELL of dense ``A``: values (n, width), int32 cols (n, width).
+
+    Keeps the ``width`` largest-magnitude entries of each row (exact when
+    every row has <= width nonzeros), in descending magnitude with ties in
+    lower-column-first order, as the reference's ``lax.top_k`` orders them;
+    a stable descending sort gives that order (``torch.topk`` does not).
+    Padding slots hold value 0 and the row's own index, so gathers stay in
+    bounds.
+    """
+    n = A.shape[0]
+    if not 0 < width <= A.shape[1]:
+        raise ValueError(f"width ({width}) must lie in [1, {A.shape[1]}]")
+    mag = A.abs()
+    cols = torch.sort(mag, dim=1, descending=True,
+                      stable=True).indices[:, :width]
+    keep = mag.gather(1, cols) > 0
+    vals = torch.where(keep, A.gather(1, cols), torch.zeros((), dtype=A.dtype,
+                                                            device=A.device))
+    own = torch.arange(n, device=A.device)[:, None].expand(n, width)
+    return vals, torch.where(keep, cols, own).to(torch.int32)
+
+
 def a_norm_sq(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``||v||_A^2`` per RHS column: v is (n,) or (n, k)."""
     if v.ndim == 1:

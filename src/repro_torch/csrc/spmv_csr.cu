@@ -16,7 +16,8 @@
 // Design.  One thread per output element (row r, column c), neighbouring
 // threads on neighbouring c, so the gathers x[cols[r,w], c] of a warp
 // coalesce along the row of x and the window reads broadcast.  Each thread
-// contracts its row window in slot order with fmaf, so the result does not
+// contracts its row window in slot order with fmaf (slot_dot in
+// common.cuh, shared with the ELL matvec), so the result does not
 // depend on the launch shape.  The predicated variant calls the same device
 // function and writes zeros for empty panels, so the two kernels are
 // bitwise equal by construction (the TPU pair reduced in different tile
@@ -32,21 +33,13 @@ namespace {
 constexpr int kThreads = 256;
 
 template <typename V, typename I>
-__device__ __forceinline__ float window_dot(const V* __restrict__ vr, const I* __restrict__ cr,
-                                            const float* __restrict__ x, int width, int k, int c) {
-  float acc = 0.f;
-  for (int w = 0; w < width; ++w) acc = fmaf(to_f32(vr[w]), x[(size_t)(int)cr[w] * k + c], acc);
-  return acc;
-}
-
-template <typename V, typename I>
 __global__ void __launch_bounds__(kThreads)
     sliced_kernel(const V* __restrict__ vals, const I* __restrict__ cols,
                   const float* __restrict__ x, float* __restrict__ y, int m, int width, int k) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)m * k) return;
   const int r = (int)(t / k), c = (int)(t % k);
-  y[t] = window_dot(vals + (size_t)r * width, cols + (size_t)r * width, x, width, k, c);
+  y[t] = slot_dot(vals + (size_t)r * width, cols + (size_t)r * width, x, width, k, c);
 }
 
 template <typename V, typename I>
@@ -58,7 +51,7 @@ __global__ void __launch_bounds__(kThreads)
   if (t >= (long long)m * k) return;
   const int r = (int)(t / k), c = (int)(t % k);
   y[t] = panel_nnz[r / rows_per_panel] > 0
-             ? window_dot(vals + (size_t)r * width, cols + (size_t)r * width, x, width, k, c)
+             ? slot_dot(vals + (size_t)r * width, cols + (size_t)r * width, x, width, k, c)
              : 0.f;
 }
 

@@ -34,30 +34,19 @@
 //
 // Pick ids are checked on the device (0 <= r < limit) with assert(), as
 // PyTorch's indexing kernels check theirs, by a small kernel launched just
-// before the sweep on the same stream: a bad id stops there with a
-// device-side assert, and the sweep queued behind it never runs.  The
-// host never reads the picks back.  The check stays out of the sweep's
-// loop: an assert inside the dependent chain made the sweeps 11-15%
+// before the sweep on the same stream (check_picks in common.cuh): a bad
+// id stops there with a device-side assert, and the sweep queued behind it
+// never runs.  The host never reads the picks back.  The check stays out
+// of the sweep's loop: an assert inside the dependent chain made the sweeps 11-15%
 // slower (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md).
 //
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError() of the launch.
-#include <cassert>
-
 #include "common.cuh"
 
 namespace {
 
 constexpr int kColsPerBlock = 4;  // warps (RHS columns) per block
-constexpr int kCheckThreads = 256;
-
-__global__ void check_picks(const int* __restrict__ picks, int steps, int limit) {
-  const int s = blockIdx.x * kCheckThreads + threadIdx.x;
-  if (s < steps) {
-    const int r = picks[s];
-    assert(r >= 0 && r < limit);
-  }
-}
 
 template <typename V, typename I>
 __device__ __forceinline__ float window_dot(const V* vr, const I* cr, const float* x, int width,
@@ -117,11 +106,6 @@ __global__ void __launch_bounds__(32 * kColsPerBlock)
 }
 
 inline dim3 grid_for(int k) { return dim3((k + kColsPerBlock - 1) / kColsPerBlock); }
-
-inline void launch_check(const void* picks, int steps, int limit, cudaStream_t stream) {
-  check_picks<<<(steps + kCheckThreads - 1) / kCheckThreads, kCheckThreads, 0, stream>>>(
-      (const int*)picks, steps, limit);
-}
 
 }  // namespace
 

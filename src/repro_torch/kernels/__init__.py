@@ -2,7 +2,11 @@
 versions and the dispatch seam.
 
 sweep_csr - fused sequential coordinate-GS / Kaczmarz sweeps over padded rows
+            (CSR and ELL)
 spmv_csr  - sliced-ELL CSR matvec, plain and empty-panel-predicated
+spmv_ell  - ELL matvec
+bbmv      - block-banded matvec (and the band-tile layout helpers)
+banded_gs - fused banded block-GS sweep over a halo-padded window
 
 Use ``repro_torch.kernels.ops`` for the checked wrappers (CPU tensors run
 the plain versions of ``repro_torch.kernels.ref``, CUDA tensors the

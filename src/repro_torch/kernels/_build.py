@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sweep_csr", "spmv_csr")
+SOURCES = ("sweep_csr", "spmv_csr", "spmv_ell", "bbmv", "banded_gs")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SUFFIX = {(torch.float32, torch.int32): "f32_i32",
           (torch.bfloat16, torch.int16): "bf16_i16",
           (torch.bfloat16, torch.int32): "bf16_i32"}
+# value dtype of the band-tile kernels (no index stream) -> C entry suffix
+VALUE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, object] = {}
@@ -109,8 +111,12 @@ def library(name: str) -> ctypes.CDLL:
 
 def c_entry(source: str, kernel: str, vals_dtype, cols_dtype, argtypes):
     """The C entry ``<kernel>_<suffix>`` of ``csrc/<source>.cu`` for this
-    value/index type pair, with its argument types declared."""
-    name = f"{kernel}_{SUFFIX[(vals_dtype, cols_dtype)]}"
+    value/index type pair (``cols_dtype=None``: a kernel with no index
+    stream, keyed by the value type alone), with its argument types
+    declared."""
+    suffix = (VALUE_SUFFIX[vals_dtype] if cols_dtype is None
+              else SUFFIX[(vals_dtype, cols_dtype)])
+    name = f"{kernel}_{suffix}"
     if name not in _entries:
         fn = getattr(library(source), name)
         fn.argtypes = argtypes

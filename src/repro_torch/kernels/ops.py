@@ -11,25 +11,35 @@ a CUDA tensor the kernel cannot take raises, and a kernel that fails to
 build or launch raises.
 
 ``launch_counts()`` reports how often each kernel was launched since the
-last ``reset_launch_counts()``; only the launchers in ``sweep_csr.py`` and
-``spmv_csr.py`` increment them, where they launch.
+last ``reset_launch_counts()``; only the launchers (``sweep_csr.py``,
+``spmv_csr.py``, ``spmv_ell.py``, ``bbmv.py``, ``banded_gs.py``) increment
+them, where they launch.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref, spmv_csr, sweep_csr
+from repro_torch.kernels import (_build, banded_gs, ref, ref_banded, spmv_csr,
+                                 sweep_csr)
+from repro_torch.kernels import bbmv as _bbmv
+from repro_torch.kernels import spmv_ell as _spmv_ell
 
 KERNELS = ("sweep_rows_gs", "sweep_rows_rk", "spmv_csr_sliced",
-           "spmv_csr_sliced_prefetch")
+           "spmv_csr_sliced_prefetch", "spmv_ell", "bbmv", "banded_gs_sweep")
+_COUNTERS = (sweep_csr.LAUNCHES, spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
+             _bbmv.LAUNCHES, banded_gs.LAUNCHES)
+
+# Largest band-tile block the CUDA kernels take (csrc/banded.cuh: one CTA's
+# staged tile rows must fit its shared memory).
+MAX_BLOCK = 256
 
 
 def launch_counts() -> dict[str, int]:
-    return {**sweep_csr.LAUNCHES, **spmv_csr.LAUNCHES}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (sweep_csr.LAUNCHES, spmv_csr.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
 
@@ -161,3 +171,75 @@ def spmv_csr_sliced_prefetch(vals, cols, panel_nnz, x, *, m, rows_per_panel):
             vals, cols, panel_nnz, x, m=m, rows_per_panel=rows_per_panel)
     return ref.spmv_csr_sliced_prefetch_ref(vals, cols, panel_nnz, x, m=m,
                                             rows_per_panel=rows_per_panel)
+
+
+def spmv_ell(vals, cols, x):
+    """``y = A @ x`` (n, k) f32 from ELL windows vals/cols (n, width) with
+    global column ids; x: (n, k) f32."""
+    name = "spmv_ell"
+    cuda = _on_cuda(name, vals, cols, x)
+    _check_windows(name, vals, cols)
+    _check_f32(name, x=x)
+    if x.ndim != 2 or x.shape[0] != vals.shape[0]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit "
+                         f"{vals.shape[0]} rows")
+    if cuda:
+        return _spmv_ell.spmv_ell(vals, cols, x)
+    return ref.spmv_ell_ref(vals, cols, x)
+
+
+def _check_bands(name, A_bands, bands: int, block: int, cuda: bool) -> int:
+    """Shape and type of band tiles (nb, 2*bands+1, block, block); returns
+    nb."""
+    if (A_bands.ndim != 4 or A_bands.shape[1] != 2 * bands + 1
+            or tuple(A_bands.shape[2:]) != (block, block) or block < 1):
+        raise ValueError(f"{name}: A_bands {tuple(A_bands.shape)} is not "
+                         f"(nb, {2 * bands + 1}, {block}, {block})")
+    if A_bands.dtype not in _build.VALUE_SUFFIX:
+        raise TypeError(f"{name}: no kernel for tiles of {A_bands.dtype}")
+    if cuda and block > MAX_BLOCK:
+        raise ValueError(f"{name}: the CUDA kernel takes block <= "
+                         f"{MAX_BLOCK}, got {block}")
+    return A_bands.shape[0]
+
+
+def bbmv(A_bands, x, *, bands: int, block: int):
+    """``y = A @ x`` (nb*block, k) f32 for block-banded tiles A_bands
+    (nb, 2*bands+1, block, block); x: (nb*block, k) f32.  Tiles whose block
+    column falls outside the matrix are never read."""
+    name = "bbmv"
+    cuda = _on_cuda(name, A_bands, x)
+    nb = _check_bands(name, A_bands, bands, block, cuda)
+    _check_f32(name, x=x)
+    if x.ndim != 2 or x.shape[0] != nb * block:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit {nb} "
+                         f"blocks of {block}")
+    if cuda:
+        return _bbmv.bbmv(A_bands, x, bands=bands, block=block)
+    return ref.bbmv_ref(A_bands, x, bands=bands, block=block)
+
+
+def banded_gs_sweep(A_bands, b, xw, picks, *, block: int, bands: int,
+                    beta: float = 1.0):
+    """Fused banded block-GS sweep; returns a new window.
+
+    A_bands: (nb, 2*bands+1, block, block) with border tiles zero
+    (``bbmv.pack_bands_local``); b: (nb*block, k) f32; xw: the halo-padded
+    window ((nb + 2*bands)*block, k) f32; picks: (steps,) block-row ids in
+    [0, nb).
+    """
+    name = "banded_gs_sweep"
+    cuda = _on_cuda(name, A_bands, b, xw)
+    nb = _check_bands(name, A_bands, bands, block, cuda)
+    _check_f32(name, b=b, xw=xw)
+    k = b.shape[-1]
+    if b.shape != (nb * block, k) or xw.shape != ((nb + 2 * bands) * block, k):
+        raise ValueError(f"{name}: b {tuple(b.shape)} / xw {tuple(xw.shape)} "
+                         f"do not fit {nb} blocks of {block} with {bands} "
+                         "halo blocks a side")
+    picks = _picks(name, picks, nb, xw)
+    if cuda:
+        return banded_gs.banded_gs_sweep(A_bands, b, xw, picks, block=block,
+                                         bands=bands, beta=beta, limit=nb)
+    return ref_banded.banded_gs_sweep_ref(A_bands, b, xw, picks, block=block,
+                                          bands=bands, beta=beta)

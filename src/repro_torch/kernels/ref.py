@@ -5,9 +5,10 @@ versions ``chip_smoke.py`` holds each CUDA kernel against on the card.
 Every product and sum accumulates in f32: bf16 values are widened with
 ``.float()`` and int16 column ids with ``.long()`` before any gather.
 
-Row windows are contracted one slot at a time, in slot order, so a result
-never depends on how many RHS columns ride along: a zero-padded column
-leaves every other column bitwise unchanged.
+Row windows are contracted one slot at a time, in slot order, and band
+tiles one tile column at a time, in column order, so a result never
+depends on how many RHS columns ride along: a zero-padded column leaves
+every other column bitwise unchanged.
 """
 from __future__ import annotations
 
@@ -50,6 +51,48 @@ def spmv_csr_sliced_prefetch_ref(vals, cols, panel_nnz, x, *, m: int,
     y = spmv_csr_sliced_ref(vals, cols, x, m=m)
     keep = (panel_nnz > 0).repeat_interleave(rows_per_panel)[:m]
     return torch.where(keep[:, None], y, torch.zeros_like(y))
+
+
+def spmv_ell_ref(vals, cols, x):
+    """``y = A @ x`` from ELL windows (n, width): each row contracts its
+    window in slot order."""
+    return window_dot(vals, cols, x)
+
+
+def tile_dot(tiles, xs):
+    """``tiles @ xs`` for (..., bl, bl) tiles and (..., bl, k) blocks of x,
+    summed over the tile's columns j in order from 0, in f32."""
+    t = tiles.float()
+    acc = torch.zeros(t.shape[:-1] + xs.shape[-1:], dtype=torch.float32,
+                      device=xs.device)
+    for j in range(t.shape[-1]):
+        acc = acc + t[..., :, j, None] * xs[..., j, None, :]
+    return acc
+
+
+def band_valid(nb: int, bands: int, device) -> torch.Tensor:
+    """(nb, 2*bands+1) bool: whether band d of block row i has a block
+    column ``i + d - bands`` inside [0, nb)."""
+    j = (torch.arange(nb, device=device)[:, None]
+         + torch.arange(-bands, bands + 1, device=device)[None, :])
+    return (j >= 0) & (j < nb)
+
+
+def bbmv_ref(A_bands, x, *, bands: int, block: int):
+    """``y = A @ x`` for block-banded tiles ``A_bands`` (nb, 2*bands+1,
+    block, block): ``y_i = sum_d A_bands[i, d] @ x[block i + d - bands]``,
+    band by band in order, bands whose block column lies outside the
+    matrix masked out."""
+    nb, width = A_bands.shape[:2]
+    k = x.shape[1]
+    xb = x.reshape(nb, block, k)
+    valid = band_valid(nb, bands, x.device)
+    rows = torch.arange(nb, device=x.device)
+    acc = torch.zeros((nb, block, k), dtype=torch.float32, device=x.device)
+    for d in range(width):
+        part = tile_dot(A_bands[:, d], xb[(rows + d - bands).clamp(0, nb - 1)])
+        acc = acc + torch.where(valid[:, d, None, None], part, 0.0)
+    return acc.reshape(nb * block, k)
 
 
 def gs_step(vals, cols, b, x, r: int, *, beta: float, write_base: int = 0):

@@ -2,8 +2,10 @@
 reference Pallas kernels, run in interpret mode through repro.kernels.ops
 as the reference's own tests run them.
 
-Tolerances: sweeps rel ||dx|| <= 1e-5 on x; SpMV rtol 1e-5 / atol 1e-6.
-Within the port, the plain sliced and prefetch matvecs are bitwise equal.
+Tolerances: sweeps rel ||dx|| <= 1e-5 on x; SpMV rtol 1e-5 / atol 1e-6
+(different f32 summation orders).  Within the port, the plain sliced and
+prefetch matvecs are bitwise equal, and the band and ELL kernels' plain
+versions give a column the same bits whatever rides along.
 The CUDA kernels themselves run only on the card (chip_smoke.py).
 """
 import pytest
@@ -14,12 +16,16 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.core import BlockBandedOp as RefBandedOp  # noqa: E402
 from repro.core import CsrOp as RefCsrOp  # noqa: E402
+from repro.core import EllOp as RefEllOp  # noqa: E402
+from repro.core import block_banded_spd as ref_banded_spd  # noqa: E402
 from repro.core import random_sparse_lsq as ref_lsq  # noqa: E402
 from repro.core import random_sparse_spd as ref_spd  # noqa: E402
 from repro.core.engine import sample_rows as ref_sample_rows  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
-from repro_torch.core.operators import CsrOp  # noqa: E402
+from repro.kernels import ref_banded as ref_ref_banded  # noqa: E402
+from repro_torch.core.operators import BlockBandedOp, CsrOp, EllOp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 from test_torch_operators import CSR_GRID, CSR_IDS, csr_case, to_np  # noqa: E402
@@ -230,4 +236,161 @@ def test_plain_path_counts_no_launches():
     x = torch.ones((16, 2))
     op.matvec(x)
     op.gs_sweep(torch.ones((16, 2)), x, torch.tensor([3, 4]))
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+# --- ELL and block-banded kernels -----------------------------------------
+
+@pytest.mark.parametrize("n,row_nnz,width", [(128, 6, 16), (100, 5, 12),
+                                             (128, 9, 6)],
+                         ids=["tiled", "ragged-n", "truncated"])
+@pytest.mark.parametrize("storage", [None, "bfloat16"])
+def test_spmv_ell_matches_pallas(n, row_nnz, width, storage):
+    """ops.spmv_ell (its plain version here) against the reference's
+    spmv_ell in interpret mode (n % 128 == 0) or its jnp fallback."""
+    A = np.array(ref_spd(n, row_nnz=row_nnz, seed=n).A)
+    ref_op = RefEllOp.from_dense(jnp.asarray(A), width=width,
+                                 storage_dtype=storage)
+    op = EllOp.from_dense(torch.from_numpy(A), width=width,
+                          storage_dtype=storage)
+    x = np.random.default_rng(2).standard_normal((n, 3)).astype(np.float32)
+    want = np.asarray(ref_ops.spmv_ell(ref_op.vals, ref_op.cols,
+                                       jnp.asarray(x), interpret=True))
+    got = ops.spmv_ell(op.vals, op.cols, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), to_np(op.to_dense()) @ x,
+                               rtol=1e-4, atol=1e-5)
+
+
+BAND_CASES = [(8, 1, 1), (16, 2, 3), (32, 1, 5), (8, 3, 2)]
+BAND_IDS = [f"block{bl}-bands{bd}-k{k}" for bl, bd, k in BAND_CASES]
+
+
+def _banded_case(block, bands, k, storage, nb=4):
+    n = nb * block
+    A = np.array(ref_banded_spd(n, block=block, bands=bands, seed=block).A)
+    ref_op = RefBandedOp.from_dense(jnp.asarray(A), block=block, bands=bands,
+                                    storage_dtype=storage)
+    op = BlockBandedOp.from_dense(torch.from_numpy(A), block=block,
+                                  bands=bands, storage_dtype=storage)
+    return ref_op, op, A
+
+
+@pytest.mark.parametrize("block,bands,k", BAND_CASES, ids=BAND_IDS)
+@pytest.mark.parametrize("storage", [None, "bfloat16"])
+def test_bbmv_matches_pallas(block, bands, k, storage):
+    """ops.bbmv against the reference's bbmv in interpret mode, bands whose
+    block column lies outside the matrix included (bands=3 over 4 block
+    rows)."""
+    ref_op, op, A = _banded_case(block, bands, k, storage)
+    x = np.random.default_rng(k).standard_normal((op.n, k)).astype(
+        np.float32)
+    want = np.asarray(ref_ops.bbmv(ref_op.A_bands, jnp.asarray(x),
+                                   bands=bands, block=block, interpret=True))
+    got = ops.bbmv(op.A_bands, torch.from_numpy(x), bands=bands, block=block)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), to_np(op.to_dense()) @ x,
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("block,bands,k", BAND_CASES, ids=BAND_IDS)
+@pytest.mark.parametrize("storage", [None, "bfloat16"])
+def test_banded_gs_sweep_matches_pallas(block, bands, k, storage):
+    """ops.banded_gs_sweep against the reference's kernel in interpret mode
+    and its jnp oracle on the same packed tiles, window and picks (repeats
+    and both border block rows included), beta 0.9: rel ||dx|| <= 1e-5."""
+    ref_op, op, A = _banded_case(block, bands, k, storage)
+    rng = np.random.default_rng(block + k)
+    b = (A @ rng.standard_normal((op.n, k))).astype(np.float32)
+    halo = bands * block
+    xw = np.zeros((op.n + 2 * halo, k), np.float32)
+    xw[halo:halo + op.n] = rng.standard_normal((op.n, k))
+    picks = np.array([0, 3, 3, 1, 2, 0, 3], np.int32)
+    args = (jnp.asarray(b), jnp.asarray(xw), jnp.asarray(picks))
+    want = np.asarray(ref_ops.banded_gs_sweep(
+        ref_op.packed_band_tiles(), *args, block=block, bands=bands, beta=0.9,
+        interpret=True))
+    oracle = np.asarray(ref_ref_banded.banded_gs_sweep_ref(
+        ref_op.packed_band_tiles(), *args, block=block, bands=bands,
+        beta=0.9))
+    got = ops.banded_gs_sweep(op.packed_band_tiles(), torch.from_numpy(b),
+                              torch.from_numpy(xw), torch.from_numpy(picks),
+                              block=block, bands=bands, beta=0.9).numpy()
+    assert _rel(got, want) <= 1e-5 and _rel(got, oracle) <= 1e-5
+    np.testing.assert_array_equal(got[:halo], 0)        # halo untouched
+    np.testing.assert_array_equal(got[halo + op.n:], 0)
+
+
+@pytest.mark.parametrize("kernel", ["bbmv", "banded_gs_sweep", "spmv_ell"])
+def test_plain_band_and_ell_kernels_are_column_independent(kernel):
+    """Column 0 of a k=5 call equals the k=1 call bitwise: each output is
+    summed in one fixed order whatever rides along."""
+    _, op, A = _banded_case(16, 2, 5, None)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((op.n, 5)).astype(np.float32))
+    if kernel == "bbmv":
+        def run(v):
+            return ops.bbmv(op.A_bands, v, bands=2, block=16)
+    elif kernel == "spmv_ell":
+        ell = EllOp.from_dense(torch.from_numpy(A), width=int(
+            (A != 0).sum(1).max()))
+
+        def run(v):
+            return ops.spmv_ell(ell.vals, ell.cols, v)
+    else:
+        b = torch.from_numpy(rng.standard_normal((op.n, 5)).astype(
+            np.float32))
+        picks = torch.tensor([1, 0, 3, 2, 2])
+
+        def run(v):
+            xw = torch.nn.functional.pad(v, (0, 0, 32, 32))
+            return ops.banded_gs_sweep(op.packed_band_tiles(),
+                                       b[:, :v.shape[1]].contiguous(), xw,
+                                       picks, block=16, bands=2)
+    assert torch.equal(run(x)[:, 0], run(x[:, :1].contiguous())[:, 0])
+
+
+def test_band_and_ell_wrappers_reject_bad_arguments():
+    _, op, A = _banded_case(8, 1, 2, None)
+    tiles = op.packed_band_tiles()
+    x = torch.zeros((op.n, 2))
+    b = torch.zeros((op.n, 2))
+    xw = torch.zeros((op.n + 16, 2))
+    picks = torch.tensor([0, 3])
+    with pytest.raises(ValueError, match="is not"):
+        ops.bbmv(tiles, x, bands=2, block=8)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.bbmv(tiles, x[:8], bands=1, block=8)
+    with pytest.raises(TypeError, match="float32"):
+        ops.bbmv(tiles, x.double(), bands=1, block=8)
+    with pytest.raises(TypeError, match="no kernel for tiles"):
+        ops.bbmv(tiles.half(), x, bands=1, block=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bbmv(tiles, torch.zeros((2, op.n)).T, bands=1, block=8)
+    with pytest.raises(IndexError, match="pick ids"):
+        ops.banded_gs_sweep(tiles, b, xw, torch.tensor([0, 4]), block=8,
+                            bands=1)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.banded_gs_sweep(tiles, b, x, picks, block=8, bands=1)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.bbmv(tiles.to("meta"), x.to("meta"), bands=1, block=8)
+    ell = EllOp.from_dense(torch.from_numpy(A), width=8)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.spmv_ell(ell.vals, ell.cols, x[:8])
+    with pytest.raises(TypeError, match="no kernel for values"):
+        ops.spmv_ell(ell.vals, ell.cols.long(), x)
+
+
+def test_band_and_ell_plain_paths_count_no_launches():
+    """The ELL and banded solves on the CPU run the plain versions only."""
+    ops.reset_launch_counts()
+    _, op, A = _banded_case(8, 1, 2, None)
+    b = torch.ones((op.n, 2))
+    x = torch.ones((op.n, 2))
+    op.matvec(x)
+    op.gs_sweep(b, x, torch.tensor([1, 2]))
+    ell = EllOp.from_dense(torch.from_numpy(A), width=8)
+    ell.matvec(x)
+    ell.gs_sweep(b, x, torch.tensor([3, 4]))
+    ell.rk_sweep(b, ell.row_norms_sq(), x, torch.tensor([3, 4]))
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)

@@ -1,6 +1,6 @@
 """repro_torch operators against the reference (repro.core.operators), over
-the CSR cases of the reference's conformance grid (tests/test_operators.py
-GRID, bf16 storage and zero rows included).
+the CSR, ELL and block-banded cases of the reference's conformance grid
+(tests/test_operators.py GRID, bf16 storage and zero rows included).
 
 Layout arrays, the derived views the kernels read and the index dtype are
 compared exactly; values computed by both packages within rtol 1e-5 /
@@ -15,11 +15,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import as_operator as ref_as_operator  # noqa: E402
+from repro.core import block_banded_spd as ref_banded_spd  # noqa: E402
 from repro.core import random_sparse_lsq as ref_lsq  # noqa: E402
 from repro.core import random_sparse_spd as ref_spd  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import operators  # noqa: E402
-from repro_torch.core.operators import CsrOp, DenseOp, as_operator  # noqa: E402
+from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp,  # noqa: E402
+                                        EllOp, as_operator)
 from repro_torch.kernels import ops  # noqa: E402
 
 from test_operators import GRID  # noqa: E402
@@ -194,9 +196,14 @@ def test_as_operator_formats():
     assert as_operator(At, storage_dtype="bfloat16").A.dtype == torch.bfloat16
     assert as_operator(At, "csr", storage_dtype=torch.bfloat16
                        ).data.dtype == torch.bfloat16
-    for fmt in ("ell", "banded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            as_operator(At, fmt)
+    S = torch.from_numpy(dense_case(dict(kind="spd", n=64, row_nnz=6,
+                                         seed=6)))
+    ell = as_operator(S, "ell", width=9, storage_dtype="bfloat16")
+    assert isinstance(ell, EllOp) and ell.vals.shape == (64, 9)
+    assert (ell.vals.dtype, ell.cols.dtype) == (torch.bfloat16, torch.int16)
+    banded = as_operator(S, "banded", block=16, bands=1)
+    assert isinstance(banded, BlockBandedOp)
+    assert banded.A_bands.shape == (4, 3, 16, 16) and banded.shape == (64, 64)
     with pytest.raises(ValueError, match="unknown operator format"):
         as_operator(At, "coo")
     with pytest.raises(ValueError, match="unknown storage_dtype"):
@@ -217,3 +224,96 @@ def test_dense_op_matches_reference():
     got = op.rk_sweep(torch.from_numpy(np.array(b)), op.row_norms_sq(), xt,
                       torch.tensor([5]), beta=0.9)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+BAND_ELL_GRID = [(fmt, i, spec) for i, (fmt, spec) in enumerate(GRID)
+                 if fmt in ("banded", "ell")]
+BAND_ELL_IDS = [f"{fmt}-{i}" for fmt, i, _ in BAND_ELL_GRID]
+
+
+def band_ell_case(fmt, spec):
+    """(reference operator, port operator on the CPU, dense f32 matrix) of
+    a banded or ELL GRID case, built as tests/test_operators.py builds it."""
+    if spec["kind"] == "banded":
+        A = np.array(ref_banded_spd(spec["n"], block=spec["block"],
+                                    bands=spec["bands"], seed=spec["seed"]).A)
+        if spec.get("zero_rows"):
+            A = A * (np.arange(A.shape[0]) % 3 != 0)[:, None].astype(
+                np.float32)
+    else:
+        A = dense_case(spec)
+    kw = {"storage_dtype": spec.get("storage_dtype")}
+    if fmt == "banded":
+        kw.update(block=spec["block"], bands=spec["bands"])
+    else:
+        kw.update(width=spec["width"])
+    return (ref_as_operator(jnp.asarray(A), fmt, **kw),
+            as_operator(torch.from_numpy(A), fmt, **kw), A)
+
+
+@pytest.mark.parametrize("fmt,i,spec", BAND_ELL_GRID, ids=BAND_ELL_IDS)
+def test_band_and_ell_layout_equals_reference(fmt, i, spec):
+    """Stored arrays (values, ids, tiles), their dtypes and the packed
+    sweep tiles equal the reference's exactly."""
+    ref_op, op, _ = band_ell_case(fmt, spec)
+    if fmt == "ell":
+        pairs = [(op.vals, ref_op.vals), (op.cols, ref_op.cols),
+                 *zip(op.padded_rows(), ref_op.padded_rows())]
+    else:
+        pairs = [(op.A_bands, ref_op.A_bands),
+                 (op.packed_band_tiles(), ref_op.packed_band_tiles())]
+        assert (op.nb, op.block, op.width, op.n, op.bands) == (
+            ref_op.nb, ref_op.block, ref_op.width, ref_op.n, ref_op.bands)
+    for got, want in pairs:
+        assert str(got.dtype).removeprefix("torch.") == \
+            np.asarray(want).dtype.name
+        np.testing.assert_array_equal(to_np(got), ref_np(want))
+    assert op.shape == ref_op.shape
+
+
+@pytest.mark.parametrize("fmt,i,spec", BAND_ELL_GRID, ids=BAND_ELL_IDS)
+def test_band_and_ell_values_match_reference(fmt, i, spec):
+    """matvec (the plain version of the format's kernel), f32 row norms,
+    to_dense, and one-pick sweeps against the reference's row actions."""
+    ref_op, op, _ = band_ell_case(fmt, spec)
+    n = op.shape[0]
+    x = np.random.default_rng(i).standard_normal((n, 3)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    want = np.asarray(ref_op.matvec_ref(jnp.asarray(x)))
+    got = op.matvec(xt)
+    assert got.dtype == torch.float32 and got.shape == (n, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    rn = op.row_norms_sq()
+    assert rn.dtype == torch.float32
+    np.testing.assert_allclose(rn.numpy(), np.asarray(ref_op.row_norms_sq()),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(to_np(op.to_dense()),
+                                  ref_np(ref_op.to_dense()))
+    b = np.random.default_rng(i + 1).standard_normal((n, 3)).astype(
+        np.float32)
+    bt = torch.from_numpy(b)
+    if fmt == "banded":
+        for bi in (0, op.nb - 1):
+            rows = slice(bi * op.block, (bi + 1) * op.block)
+            want = x.copy()
+            want[rows] += 0.7 * np.asarray(ref_op.residual_panel(
+                jnp.asarray(b), jnp.asarray(x), bi))
+            got = op.gs_sweep(bt, xt, torch.tensor([bi]), beta=0.7)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-6)
+        return
+    for r in (0, n // 2, n - 1):
+        want = x.copy()
+        want[r] += 0.7 * (b[r] - np.asarray(ref_op.row_dot(r,
+                                                           jnp.asarray(x))))
+        got = op.gs_sweep(bt, xt, torch.tensor([r]), beta=0.7)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    rn_ref = np.asarray(ref_op.row_norms_sq())
+    for r in (1, n - 2):
+        if rn_ref[r] == 0:
+            continue
+        g = (b[r] - np.asarray(ref_op.row_dot(r, jnp.asarray(x)))) / rn_ref[r]
+        want = np.asarray(ref_op.rk_update(jnp.asarray(x), r, jnp.asarray(g),
+                                           0.7))
+        got = op.rk_sweep(bt, rn, xt, torch.tensor([r]), beta=0.7)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
