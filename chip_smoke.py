@@ -195,11 +195,6 @@ def main() -> int:
           f"n_rhs={K}): {time.perf_counter() - t0:.2f} s, lam=["
           f"{float(banded.lam_min):.4f}, {float(banded.lam_max):.4f}]",
           flush=True)
-    # ELL keeps the `width` largest entries of each row: the true maximum
-    # count makes it exact (the default width=32 would truncate rows).
-    ell_width = int((spd.A != 0).sum(1).max())
-    print(f"  ELL width for the SPD problem (max nonzeros per row): "
-          f"{ell_width}", flush=True)
     # The same design with every 16th panel of 8 rows zeroed (rows with no
     # features): its CSR pattern has empty panels, so its matvec takes the
     # predicated kernel.  Zero rows of A have zero rows of b = A x_true.
@@ -226,8 +221,7 @@ def main() -> int:
               f"{int((op.panel_nnz() == 0).sum())}", flush=True)
     for sd in (None, "bfloat16"):
         t0 = time.perf_counter()
-        op = ops_by[("ell", sd)] = as_operator(spd.A, "ell", width=ell_width,
-                                               storage_dtype=sd)
+        op = ops_by[("ell", sd)] = as_operator(spd.A, "ell", storage_dtype=sd)
         torch.cuda.synchronize()
         print(f"  ell {sd}: built from dense in {time.perf_counter() - t0:.3f}"
               f" s; vals {tuple(op.vals.shape)} {op.vals.dtype}, cols "
@@ -240,6 +234,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.3f} s; tiles "
               f"{tuple(op.A_bands.shape)} {op.A_bands.dtype}", flush=True)
     ell = ops_by[("ell", None)]
+    ell_width = ell.width
     check(int((ell.vals != 0).sum()) == ops_by[("spd", None)].nnz,
           f"ELL at width {ell_width} holds every nonzero of the SPD problem "
           f"({ops_by[('spd', None)].nnz})")
@@ -508,7 +503,7 @@ def main() -> int:
                               schedule=gs_sched(1, LSQ_M)))
     eg = drive(f"ELL GS (width {ell_width}), {ELL_SWEEPS} sweeps",
                dict(sweep_rows_gs=ELL_SWEEPS, spmv_ell=2 * ELL_SWEEPS),
-               lambda: solve(spd, format="ell", width=ell_width,
+               lambda: solve(spd, format="ell",
                              generator=torch.Generator(dev).manual_seed(1),
                              schedule=gs_sched(ELL_SWEEPS, SPD_N)))
     bg = drive(f"banded GS (block {BLOCK}, bands {BANDS}), {BANDED_SWEEPS} "
@@ -744,18 +739,24 @@ def main() -> int:
     tiles = int(ref.band_valid(nb, BANDS, dev).sum())
     b_ms, by = bound_ms(tiles * BLOCK * BLOCK * val_b + 2 * SPD_N * K * 4,
                         2.0 * tiles * BLOCK * BLOCK * K)
+    # Only PyTorch's own calls sit in the try: a PyTorch build without a
+    # CUDA BSR product for f32 raises there, and that alone makes the
+    # yardstick null.  The agreement check and the timing stay outside,
+    # so a mismatch or a failed launch still ends the run.
+    A_bsr, lib_ms = None, None
     try:
         with warnings.catch_warnings():     # "sparse BSR is in beta"
             warnings.simplefilter("ignore", UserWarning)
             A_bsr = banded.A.to_sparse_bsr((BLOCK, BLOCK))
             y_lib = A_bsr @ x_band
+    except (RuntimeError, NotImplementedError) as e:
+        A_bsr = None
+        lib_note = f"torch.sparse BSR not available here ({str(e)[:120]})"
+    if A_bsr is not None:
         check(torch.allclose(y_lib, run(), rtol=1e-4, atol=1e-4),
               "bbmv: torch.sparse BSR matmul agrees with the kernel")
         lib_ms = cuda_ms(lambda: A_bsr @ x_band, 50)
         lib_note = f"torch.sparse BSR {lib_ms:.4f} ms"
-    except (RuntimeError, NotImplementedError) as e:
-        lib_ms = None
-        lib_note = f"torch.sparse BSR not available here ({str(e)[:120]})"
     print(f"  bbmv nb={nb} block={BLOCK} bands={BANDS} ({tiles} tiles): "
           f"{ms:.4f} ms; plain {plain_ms:.4f} ms; {lib_note}; bound "
           f"{b_ms:.5f} ms ({by})", flush=True)

@@ -205,7 +205,7 @@ def solve(
     beta: float = 1.0,
     block: int = 128,
     bands: int = 2,
-    width: int = 32,
+    width: int | None = None,
     rows_per_panel: int | None = None,
     storage_dtype=None,
     x0: torch.Tensor | None = None,
@@ -216,8 +216,8 @@ def solve(
     ``problem`` is an ``SPDProblem`` (GS action by default) or an
     ``LSQProblem`` (Kaczmarz by default).  ``format`` picks the operator
     ("dense", "banded", "ell" or "csr"); ``block``/``bands`` shape the
-    banded format, ``width`` the ELL format (a row with more nonzeros keeps
-    only its ``width`` largest, so pass the true maximum), ``rows_per_panel``
+    banded format, ``width`` the ELL format (``None``: every row's nonzeros
+    fit; a smaller width keeps each row's largest), ``rows_per_panel``
     the CSR panel layout (``None``: 8), ``storage_dtype`` the coefficient
     precision (``None`` keeps the input dtype; the iterate, ``b`` and all
     accumulation stay f32).  The direction stream comes from ``generator``

@@ -200,12 +200,16 @@ class EllOp:
         self.cols = cols
 
     @classmethod
-    def from_dense(cls, A: torch.Tensor, *, width: int,
+    def from_dense(cls, A: torch.Tensor, *, width: int | None = None,
                    storage_dtype=None) -> "EllOp":
         """The ``width`` largest-magnitude entries of each row of ``A``
-        (``spd.ell_from_dense``; exact when no row has more nonzeros).
-        ``storage_dtype`` rounds the values; column ids narrow to int16
-        alongside when every id fits."""
+        (``spd.ell_from_dense``).  ``width=None`` takes the largest nonzero
+        count of any row, so the operator holds every entry; a smaller
+        width drops each row's smallest entries.  ``storage_dtype`` rounds
+        the values; column ids narrow to int16 alongside when every id
+        fits."""
+        if width is None:
+            width = max(1, int((A != 0).sum(1).max()))
         vals, cols = ell_from_dense(A, width)
         dt = canonical_storage_dtype(storage_dtype)
         if dt is not None:
@@ -473,13 +477,15 @@ class CsrOp:
 
 
 def as_operator(A: torch.Tensor, format: str = "dense", *, block: int = 128,
-                bands: int = 2, width: int = 32, rows_per_panel: int = 8,
+                bands: int = 2, width: int | None = None,
+                rows_per_panel: int = 8,
                 storage_dtype=None):
     """Build an operator of the requested ``format`` from a dense matrix.
 
     ``block``/``bands`` shape the banded format, ``width`` the ELL format
-    (rows with more nonzeros keep their ``width`` largest: pass the true
-    maximum for an exact operator), ``rows_per_panel`` the CSR panels.
+    (``None``: the largest nonzero count of any row, exact; a smaller
+    width keeps each row's ``width`` largest entries), ``rows_per_panel``
+    the CSR panels.
     ``storage_dtype`` ("float32"/"bfloat16"/None) selects the coefficient
     storage precision; ``None`` keeps the input dtype.  The iterate, row
     norms and every kernel accumulator stay f32 regardless.

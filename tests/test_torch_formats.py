@@ -89,6 +89,25 @@ def test_ell_windows_equal_reference(kind, width):
         spd.ell_from_dense(torch.from_numpy(np.array(A)), A.shape[0] + 1)
 
 
+@pytest.mark.parametrize("row_nnz", [0, 5, 40])
+def test_ell_default_width_holds_every_nonzero(row_nnz):
+    """Left at its default, the ELL width is the largest nonzero count of
+    any row (1 for a zero matrix): the operator is exact, also past the
+    reference's default width of 32, and its windows equal the
+    reference's at that width."""
+    rng = np.random.default_rng(row_nnz)
+    A = np.zeros((64, 64), np.float32)
+    for i in range(64):
+        cols = rng.choice(64, size=row_nnz, replace=False)
+        A[i, cols] = rng.standard_normal(row_nnz).astype(np.float32) + 2.0
+    op = as_operator(torch.from_numpy(A), "ell")
+    assert op.width == max(1, row_nnz)
+    np.testing.assert_array_equal(op.to_dense().numpy(), A)
+    ref_op = ref_as_operator(jnp.asarray(A), "ell", width=op.width)
+    np.testing.assert_array_equal(op.vals.numpy(), np.asarray(ref_op.vals))
+    np.testing.assert_array_equal(op.cols.numpy(), np.asarray(ref_op.cols))
+
+
 # (format, problem, storage, action, format arguments)
 SOLVES = [
     ("ell", "sparse", None, "gs", dict(width=16)),
