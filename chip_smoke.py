@@ -11,11 +11,15 @@ launch per record chunk): randomized Gauss-Seidel on
 ``random_sparse_spd(16384)`` through the CSR and the ELL formats, and on
 ``block_banded_spd(16384, block=128, bands=2)`` through the block-banded
 format; randomized Kaczmarz on ``random_sparse_lsq(32768, 4096)`` through
-CSR.  It checks what comes out, shows from the launch counters (set to 0
-just before each path and read just after) that each path ran its kernels
-and nothing else, and times each kernel beside its plain version, its
-roofline bound and, where one exists, a PyTorch library call computing the
-same function.
+CSR.  It drives the distributed Kaczmarz engine (``solve`` with
+``Schedule(rounds=, local_steps=)`` and a process group; one local-phase
+launch per round) at P = 1 in this process on the LSQ problem (CSR) and
+the banded problem, and at P = 4 in four spawned processes that share the
+card through a gloo group.  It checks what comes out, shows from the
+launch counters (set to 0 just before each path and read just after) that
+each path ran its kernels and nothing else, and times each kernel beside
+its plain version, its roofline bound and, where one exists, a PyTorch
+library call computing the same function.
 
 The last lines of standard output are the card's name and power limit (as
 ``nvidia-smi`` gives them), one JSON object describing the kernels, and
@@ -29,6 +33,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -57,6 +62,21 @@ SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # |y_k - y_p| <= rtol * (|A| |x|) + atol
 BBMV_RTOL, BBMV_ATOL = 2e-5, 1e-6
 MONO_RTOL = 1e-6            # err_sq non-increasing up to this rounding
 RESID_RTOL = 1e-4           # kernel residual vs dense torch.matmul residual
+# The distributed Kaczmarz engine.  P = 1 in this process: sparse_rk on the
+# LSQ problem (CSR), DIST_RK_ROUNDS rounds of LSQ_M local steps; banded_rk
+# on the banded problem, BANDED_RK_ROUNDS rounds of nb.  P = 4 in four
+# processes sharing the card: rounds of P4_SPARSE_STEPS and
+# P4_BANDED_STEPS picks per rank.  sparse_rk's four ranks each sweep their
+# own slab and their deltas add up; with LSQ_M / 4 steps per rank and
+# round the sum overshoots and the residual grows (a CPU rehearsal at the
+# same m/n and row count per column diverged), so P = 4 runs 512 steps
+# per rank and round, 4 sweeps in all.
+DIST_RK_ROUNDS = 3
+BANDED_RK_ROUNDS, BANDED_RK_BETA = 10, 0.9
+P4 = 4
+P4_SPARSE_ROUNDS, P4_SPARSE_STEPS, P4_SPARSE_BETA = 64, 512, 0.9
+P4_BANDED_ROUNDS, P4_BANDED_STEPS = 60, 32
+P4_FALL, P4_REL = 1e-2, 1e-2  # residual falls 100-fold; final rel < 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -102,6 +122,54 @@ def rel(a, b) -> float:
     return float((a - b).double().norm() / (b.double().norm() + 1e-300))
 
 
+def p4_rank(group, device, path):
+    """One rank of the P = 4 phase (run in a spawned process): rebuild the
+    CSR and banded operators from the arrays the parent saved, run both
+    distributed Kaczmarz strategies with the launch counters set to 0
+    just before each, and gather every rank's counts and wall time."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.core.distributed import solve_distributed
+    from repro_torch.kernels import ops
+    data = torch.load(path)
+    csr = convert.csr_from_arrays(
+        *(data[f].numpy() for f in ("data", "indices", "row_id", "row_start",
+                                    "row_nnz")), device=device,
+        **data["layout"])
+    band = convert.banded_from_arrays(data["tiles"].numpy(), BANDS,
+                                      device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = {}
+    for kind, op, b, xs, kw in (
+            ("sparse_rk", csr, data["lsq_b"], data["lsq_x_star"],
+             dict(rounds=P4_SPARSE_ROUNDS, local_steps=P4_SPARSE_STEPS,
+                  beta=P4_SPARSE_BETA)),
+            ("banded_rk", band, data["band_b"], data["band_x_star"],
+             dict(rounds=P4_BANDED_ROUNDS, local_steps=P4_BANDED_STEPS,
+                  beta=BANDED_RK_BETA))):
+        b, xs = b.to(device), xs.to(device)
+        sync()
+        dist.barrier(group)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve_distributed(op, b, torch.zeros_like(xs), xs,
+                                action="rk", group=group, sync="psum",
+                                seed=SEED + 21, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        ranks = [None] * dist.get_world_size(group)
+        dist.all_gather_object(ranks, (ops.launch_counts(), wall), group=group)
+        out[kind] = dict(x=res.x.cpu(), resid=res.resid.cpu(), tau=res.tau,
+                         bytes_per_round=res.bytes_per_round, ranks=ranks)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -113,10 +181,13 @@ def main() -> int:
                                  block_banded_spd, laplacian_spd,
                                  random_sparse_lsq, random_sparse_spd, solve)
         from repro_torch.core import ell_from_dense
-        from repro_torch.core.engine import draw_picks, sample_rows
+        from repro_torch.core.distributed import _sync_bytes_per_round
+        from repro_torch.core.engine import (draw_picks, sample_rows,
+                                             scheduled_tau)
         from repro_torch.core.operators import CsrOp
         from repro_torch.kernels import (_build, ops, ref, ref_banded,
                                          sweep_csr)
+        from repro_torch.launch.mesh import process_group, run_workers
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -342,6 +413,12 @@ def main() -> int:
     e = rel(ops.sweep_rows_rk(vals, cols, bb, rnb, xb, pb, beta=0.9),
             ref.sweep_rows_rk_ref(vals, cols, bb, rnb, xb, pb, beta=0.9))
     check(e <= SWEEP_RTOL, f"sweep_rows_rk bf16/i32: rel err {e:.3e}")
+    db = torch.randn((n_big, 4), generator=gen, device=dev)
+    got = ops.sweep_rows_rk_delta(vals, cols, bb, rnb, xb, db, pb, beta=0.9)
+    want = ref.sweep_rows_rk_delta_ref(vals, cols, bb, rnb, xb, db, pb,
+                                       beta=0.9)
+    e = max(rel(got[0], want[0]), rel(got[1], want[1]))
+    check(e <= SWEEP_RTOL, f"sweep_rows_rk_delta bf16/i32: rel err {e:.3e}")
     spmv_check("bf16/i32", big, xb, "sliced")
     spmv_check("bf16/i32", big, xb, "sliced_prefetch")
 
@@ -410,6 +487,98 @@ def main() -> int:
                                   block=BLOCK, bands=BANDS, beta=0.9)
         check(torch.equal(one[:, 0], got[:, 0]),
               f"banded_gs_sweep {tag}: column 0 at k={K} bitwise equals k=1")
+
+    # The distributed engine's local-phase kernels at the main paths'
+    # shapes: sweep_rows_rk_delta on a PREFIX-pick prefix of rank 0's slab
+    # of the LSQ problem at P = 4; banded_rk_sweep on one P = 4 round
+    # (P4_BANDED_STEPS picks of the global panel stream) on rank 1's
+    # window, an interior one with halos on both sides, whose gates are
+    # mixed (at P = 1 every gate is 1).
+    slab = LSQ_M // P4
+    nb_local = nb // P4
+    row0 = nb_local * BLOCK
+    d_lsq = torch.randn((LSQ_N, K), generator=gen, device=dev)
+    panel_w = ops_by[("banded", None)].row_norms_sq().sum(1)
+    round_picks = sample_rows(panel_w, P4_BANDED_STEPS, generator=gen)
+    li = round_picks - nb_local
+    gates = ((li >= 0) & (li < nb_local)).to(torch.int32)
+    lic = li.clamp(0, nb_local - 1)
+    check(0 < int(gates.sum()) < P4_BANDED_STEPS,
+          f"banded_rk_sweep check round: {int(gates.sum())} of "
+          f"{P4_BANDED_STEPS} picks owned by rank 1 (mixed gates)")
+    dw_band = torch.randn((row0 + 2 * halo, K), generator=gen, device=dev)
+    rk_args = {}
+    for sd in (None, "bfloat16"):
+        tag = "f32/i32" if sd is None else "bf16/i16"
+        op = ops_by[("lsq", sd)]
+        vals, cols = (a[:slab] for a in op.padded_rows())
+        rn = op.row_norms_sq()[:slab]
+        picks = sample_rows(rn, PREFIX, generator=gen)
+        args = (vals, cols, lsq.b[:slab], rn)
+        got = ops.sweep_rows_rk_delta(*args, x_lsq, d_lsq, picks, beta=0.9)
+        want = ref.sweep_rows_rk_delta_ref(*args, x_lsq, d_lsq, picks,
+                                           beta=0.9)
+        torch.cuda.synchronize()
+        e = max(rel(got[0], want[0]), rel(got[1], want[1]))
+        check(e <= SWEEP_RTOL, f"sweep_rows_rk_delta {tag} slab {slab}x"
+              f"{LSQ_N} k={K} {PREFIX} picks: rel err of x and d {e:.3e} <= "
+              f"{SWEEP_RTOL:g}")
+        errs[("sweep_rows_rk_delta", sd)] = max(
+            float((g - w).abs().max()) for g, w in zip(got, want))
+        zero = torch.zeros_like(x_lsq)
+        zx, zd = ops.sweep_rows_rk_delta(*args, zero, zero, picks, beta=0.9)
+        check(torch.equal(zx, zd) and bool(zx.any()),
+              f"sweep_rows_rk_delta {tag}: from x = d = 0 the two carries "
+              "end bitwise equal")
+        one = ops.sweep_rows_rk_delta(
+            vals, cols, lsq.b[:slab, :1].contiguous(), rn,
+            x_lsq[:, :1].contiguous(), d_lsq[:, :1].contiguous(), picks,
+            beta=0.9)
+        check(torch.equal(one[0][:, 0], got[0][:, 0])
+              and torch.equal(one[1][:, 0], got[1][:, 0]),
+              f"sweep_rows_rk_delta {tag}: column 0 at k={K} bitwise equals "
+              "k=1")
+        if sd is None:
+            rk_args["sweep_rows_rk_delta"] = (args, picks)
+
+        tag = "f32" if sd is None else "bf16"
+        op = ops_by[("banded", sd)]
+        rnb = op.row_norms_sq()
+        rnb = torch.where(rnb > 0, rnb, 1.0)[nb_local:2 * nb_local]
+        args = (op.packed_band_tiles()[nb_local:2 * nb_local],
+                banded.b[row0:2 * row0], rnb)
+        xw = xw_band[row0:2 * row0 + 2 * halo]
+        kw = dict(block=BLOCK, bands=BANDS, beta=0.9)
+        got = ops.banded_rk_sweep(*args, xw, dw_band, lic, gates, **kw)
+        want = ref_banded.banded_rk_sweep_ref(*args, xw, dw_band, lic, gates,
+                                              **kw)
+        torch.cuda.synchronize()
+        e = max(rel(got[0], want[0]), rel(got[1], want[1]))
+        check(e <= SWEEP_RTOL, f"banded_rk_sweep {tag} nb_local={nb_local} "
+              f"k={K} {P4_BANDED_STEPS} picks, mixed gates: rel err of xw and "
+              f"dw {e:.3e} <= {SWEEP_RTOL:g}")
+        errs[("banded_rk_sweep", sd)] = max(
+            float((g - w).abs().max()) for g, w in zip(got, want))
+        same = ops.banded_rk_sweep(*args, xw, dw_band, lic,
+                                   torch.zeros_like(gates), **kw)
+        check(torch.equal(same[0], xw) and torch.equal(same[1], dw_band),
+              f"banded_rk_sweep {tag}: all gates 0 leave xw and dw bitwise "
+              "unchanged")
+        zero = torch.zeros_like(xw)
+        zx, zd = ops.banded_rk_sweep(*args, zero, zero, lic,
+                                     torch.ones_like(gates), **kw)
+        check(torch.equal(zx, zd) and bool(zx.any()),
+              f"banded_rk_sweep {tag}: from xw = dw = 0 with all gates 1 the "
+              "two windows end bitwise equal")
+        one = ops.banded_rk_sweep(args[0], args[1][:, :1].contiguous(),
+                                  args[2], xw[:, :1].contiguous(),
+                                  dw_band[:, :1].contiguous(), lic, gates,
+                                  **kw)
+        check(torch.equal(one[0][:, 0], got[0][:, 0])
+              and torch.equal(one[1][:, 0], got[1][:, 0]),
+              f"banded_rk_sweep {tag}: column 0 at k={K} bitwise equals k=1")
+        if sd is None:
+            rk_args["banded_rk_sweep"] = (args, xw)
 
     # ELL windows of a matrix full of magnitude ties: the card's stable
     # sort orders them as the CPU's (which the tests hold against JAX)
@@ -513,6 +682,29 @@ def main() -> int:
                              bands=BANDS,
                              generator=torch.Generator(dev).manual_seed(5),
                              schedule=gs_sched(BANDED_SWEEPS, nb)))
+    # The distributed engine at P = 1 on a world-size-1 gloo group: one
+    # local-phase launch and one matvec per round (the residual of the
+    # rank's rows), and no collective.
+    with tempfile.TemporaryDirectory() as store, \
+            process_group("gloo", store) as pg:
+        drk = drive(f"distributed RK on CSR, P = 1, {DIST_RK_ROUNDS} rounds "
+                    f"of {LSQ_M} local steps",
+                    dict(sweep_rows_rk_delta=DIST_RK_ROUNDS,
+                         spmv_ell=DIST_RK_ROUNDS),
+                    lambda: solve(lsq, format="csr", group=pg, sync="psum",
+                                  seed=SEED + 11,
+                                  schedule=Schedule(rounds=DIST_RK_ROUNDS,
+                                                    local_steps=LSQ_M)))
+        dbk = drive(f"distributed banded RK, P = 1, {BANDED_RK_ROUNDS} "
+                    f"rounds of {nb} local steps",
+                    dict(banded_rk_sweep=BANDED_RK_ROUNDS,
+                         bbmv=BANDED_RK_ROUNDS),
+                    lambda: solve(banded, format="banded", action="rk",
+                                  block=BLOCK, bands=BANDS,
+                                  beta=BANDED_RK_BETA, group=pg,
+                                  seed=SEED + 12,
+                                  schedule=Schedule(rounds=BANDED_RK_ROUNDS,
+                                                    local_steps=nb)))
     print(f"  launches on the main paths, all together: {launches}",
           flush=True)
     for name in ops.KERNELS:
@@ -552,6 +744,82 @@ def main() -> int:
              (lsq_holes.x_star ** 2).sum(0))
     dense_resid("RK, empty-panel design", lsq_holes, rkh)
 
+    def schedule_numbers(tag, res, kind, steps, workers):
+        """tau and bytes_per_round of a result (a dict) are those of its
+        schedule."""
+        tau = scheduled_tau(workers, steps, shared_stream=True,
+                            local_sampling=kind == "sparse_rk")
+        nbytes = _sync_bytes_per_round(kind, n=res["x"].shape[0], k=K,
+                                       num_workers=workers)
+        check(res["tau"] == tau and res["bytes_per_round"] == nbytes,
+              f"{tag}: tau {res['tau']} and bytes per round "
+              f"{res['bytes_per_round']:g} are scheduled_tau and "
+              "_sync_bytes_per_round of its schedule")
+
+    for tag, prob, res, kind, steps in (
+            ("distributed RK on CSR, P = 1", lsq, drk, "sparse_rk", LSQ_M),
+            ("distributed banded RK, P = 1", banded, dbk, "banded_rk", nb)):
+        check(res.x.shape == prob.x_star.shape
+              and bool(torch.isfinite(res.x).all()),
+              f"{tag}: iterate finite, shape {tuple(res.x.shape)}")
+        check(bool((res.resid[-1] < res.resid[0]).all()),
+              f"{tag}: the residual falls (column 0: "
+              + ", ".join(f"{v:.4g}" for v in res.resid[:, 0].tolist()) + ")")
+        dense_resid(tag, prob, res)
+        schedule_numbers(tag, res._asdict(), kind, steps, 1)
+
+    print(f"== P = {P4}: {P4} processes sharing the card, gloo over CUDA "
+          "tensors", flush=True)
+    # The problems are built once, here; the ranks rebuild the operators
+    # from their arrays (convert.csr_from_arrays / banded_from_arrays).
+    csr = ops_by[("lsq", None)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "p4.pt")
+        torch.save(dict(
+            data=csr.data.cpu(), indices=csr.indices.cpu(),
+            row_id=csr.row_id.cpu(), row_start=csr.row_start.cpu(),
+            row_nnz=csr.row_nnz.cpu(),
+            layout=dict(shape=csr.shape, nnz=csr.nnz, row_cap=csr.row_cap,
+                        rows_per_panel=csr.rows_per_panel,
+                        panel_width=csr.panel_width),
+            tiles=ops_by[("banded", None)].A_bands.cpu(),
+            lsq_b=lsq.b.cpu(), lsq_x_star=lsq.x_star.cpu(),
+            band_b=banded.b.cpu(), band_x_star=banded.x_star.cpu()), path)
+        t0 = time.perf_counter()
+        p4 = run_workers(p4_rank, P4, path, backend="gloo", device="cuda",
+                         timeout=600)
+        p4_wall = time.perf_counter() - t0
+    print(f"  {P4} ranks spawned, run and joined in {p4_wall:.2f} s wall",
+          flush=True)
+    for kind, prob, rounds, steps, expect in (
+            ("sparse_rk", lsq, P4_SPARSE_ROUNDS, P4_SPARSE_STEPS,
+             dict(sweep_rows_rk_delta=P4_SPARSE_ROUNDS,
+                  spmv_ell=P4_SPARSE_ROUNDS)),
+            ("banded_rk", banded, P4_BANDED_ROUNDS, P4_BANDED_STEPS,
+             dict(banded_rk_sweep=P4_BANDED_ROUNDS, bbmv=P4_BANDED_ROUNDS))):
+        tag = f"P = {P4} {kind}, {rounds} rounds of {steps} local steps"
+        res = p4[kind]
+        print(f"  {tag}: wall s per rank "
+              + ", ".join(f"{wall:.3f}" for _, wall in res["ranks"])
+              + f" ({P4} CUDA contexts time-slicing one card: says nothing "
+              "about scaling)", flush=True)
+        for rank, (counts, _) in enumerate(res["ranks"]):
+            check(counts == {name: expect.get(name, 0) for name in ops.KERNELS},
+                  f"{tag}: rank {rank} launched exactly {expect}")
+        resid = res["resid"]
+        check(bool((resid[-1] < P4_FALL * resid[0]).all()),
+              f"{tag}: the residual falls {1 / P4_FALL:g}-fold (column 0 "
+              f"{float(resid[0, 0]):.4g} -> {float(resid[-1, 0]):.4g}, "
+              f"smallest fall {float((resid[0] / resid[-1]).min()):.4g}x)")
+        x = res["x"].to(dev)
+        relres = float((torch.linalg.vector_norm(prob.b - prob.A @ x, dim=0)
+                        / torch.linalg.vector_norm(prob.b, dim=0)).max())
+        check(relres < P4_REL, f"{tag}: rank 0's final relative residual "
+              f"(dense torch.matmul) {relres:.3e} < {P4_REL:g}")
+        schedule_numbers(tag, res, kind, steps, P4)
+        check(res["bytes_per_round"] > 0, f"{tag}: a delta all-reduce of "
+              f"{res['bytes_per_round']:g} bytes per rank and round")
+
     def a_rel(prob, res):
         return float((res.err_sq[-1] / a_norm_sq(prob.A, prob.x_star)).mean())
 
@@ -567,7 +835,7 @@ def main() -> int:
     val_b, idx_b = 4, 4
 
     def sweep_entry(name, op, run, run_plain, picks, per_pick_flops,
-                    extra_bytes_per_pick, source_line):
+                    extra_bytes_per_pick, source_line, carries=1):
         ms = cuda_ms(run, 10)
         plain = cuda_ms(run_plain, 1)
         nnz_r = op.row_nnz[picks.long()].double()
@@ -575,7 +843,7 @@ def main() -> int:
         n_x = op.shape[1]
         nbytes = (float(nnz_r.sum()) * (val_b + idx_b)
                   + picks.numel() * (k * 4 + 4 + extra_bytes_per_pick)
-                  + 2 * n_x * k * 4)
+                  + 2 * carries * n_x * k * 4)
         flops = float(per_pick_flops(nnz_r).sum())
         b_ms, by = bound_ms(nbytes, flops)
         print(f"  {name}: {ms:.4f} ms for {picks.numel()} picks "
@@ -607,6 +875,24 @@ def main() -> int:
                                       rk_picks[None]),
         rk_picks[None], lambda z: 5 * z * K + 3 * K, 4,
         "src/repro/kernels/sweep_csr.py:181")
+
+    # The two-carry sweep on rank 0's slab at P = 4 (its rows are the
+    # operator's first, so op_l.row_nnz indexes them): bytes and flops as
+    # sweep_rows_rk's, plus the delta carry in and out and its add.
+    args, picks = rk_args["sweep_rows_rk_delta"]
+    sweep_entry(
+        "sweep_rows_rk_delta", op_l,
+        lambda: ops.sweep_rows_rk_delta(*args, x_lsq, d_lsq, picks),
+        lambda: ref.sweep_rows_rk_delta_ref(*args, x_lsq, d_lsq, picks),
+        picks, lambda z: 6 * z * K + 3 * K, 4,
+        "src/repro/kernels/sweep_csr.py:258", carries=2)
+    full_delta = sample_rows(rn_l, LSQ_M, generator=gen)
+    vals_f, cols_f = op_l.padded_rows()
+    zero_l = torch.zeros_like(x_lsq)
+    ms = cuda_ms(lambda: ops.sweep_rows_rk_delta(
+        vals_f, cols_f, lsq.b, rn_l, x_lsq, zero_l, full_delta), 5)
+    print(f"  sweep_rows_rk_delta, one P = 1 main-path round ({LSQ_M} "
+          f"picks): {ms:.4f} ms ({ms * 1e3 / LSQ_M:.4f} us/pick)", flush=True)
 
     # whole record chunks as the main path launches them
     full_gs = draw_picks(op, "gs", SPD_N, generator=gen)
@@ -792,6 +1078,49 @@ def main() -> int:
                       max_abs_err=errs[("banded_gs_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                       library_ms=None))
+
+    # banded_rk_sweep: the P = 4 check round (rank 1's window, mixed
+    # gates).  A pick whose gate is 0 leaves both windows as they were, so
+    # the least work these inputs need is the owned picks': per such pick
+    # its tiles, b block, row norms, id and gate, and 2 * 2 * block^2 * k
+    # flops per tile read (A x, then A^T gn); both windows once in and
+    # once out.  No library call computes this serial chain.
+    args, xw = rk_args["banded_rk_sweep"]
+    run = functools.partial(ops.banded_rk_sweep, *args, xw, dw_band, lic,
+                            gates, block=BLOCK, bands=BANDS)
+    ms = cuda_ms(run, 10)
+    plain_ms = cuda_ms(functools.partial(
+        ref_banded.banded_rk_sweep_ref, *args, xw, dw_band, lic, gates,
+        block=BLOCK, bands=BANDS), 1)
+    owned = int(gates.sum())
+    per_pick = ((2 * BANDS + 1) * BLOCK * BLOCK * val_b + BLOCK * K * 4
+                + BLOCK * 4 + 8)
+    b_ms, by = bound_ms(owned * per_pick + 2 * 2 * xw.numel() * 4,
+                        4.0 * owned * (2 * BANDS + 1) * BLOCK * BLOCK * K)
+    print(f"  banded_rk_sweep, one P = {P4} round ({P4_BANDED_STEPS} picks, "
+          f"{owned} owned): {ms:.4f} ms ({ms * 1e3 / P4_BANDED_STEPS:.3f} "
+          f"us/pick); plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); "
+          "no library call", flush=True)
+    lines.append(dict(name="banded_rk_sweep", route="cuda",
+                      source="src/repro_torch/csrc/banded_gs.cu",
+                      replaces="src/repro/kernels/banded_gs.py:191",
+                      launches=launches["banded_rk_sweep"],
+                      max_abs_err=errs[("banded_rk_sweep", None)], ms=ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=None))
+    # one P = 1 main-path round: nb picks, every gate 1, on the whole
+    # problem's window
+    op = ops_by[("banded", None)]
+    rn_all = op.row_norms_sq()
+    rn_all = torch.where(rn_all > 0, rn_all, 1.0)
+    rk_round = sample_rows(panel_w, nb, generator=gen)
+    ones = torch.ones_like(rk_round, dtype=torch.int32)
+    ms = cuda_ms(lambda: ops.banded_rk_sweep(
+        op.packed_band_tiles(), banded.b, rn_all, xw_band,
+        torch.zeros_like(xw_band), rk_round, ones, block=BLOCK,
+        bands=BANDS), 5)
+    print(f"  banded_rk_sweep, one P = 1 main-path round ({nb} picks): "
+          f"{ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick)", flush=True)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)

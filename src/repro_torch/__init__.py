@@ -5,13 +5,15 @@ same things with PyTorch and hand-written CUDA kernels (``kernels/``,
 sources in ``csrc/``, built with ``nvcc`` at first use).  It imports
 neither JAX nor ``repro``.  Entry points run on the card unless the caller
 passes CPU tensors or ``device="cpu"``; on the CPU every kernel wrapper
-runs its plain PyTorch version.
+runs its plain PyTorch version.  ``launch.mesh`` starts the processes of
+a distributed solve.
 """
 from repro_torch.core import (BlockBandedOp, CsrOp, DenseOp, EllOp,
-                              LSQProblem, SPDProblem, Schedule, SolveResult,
-                              a_norm_sq, as_operator, block_banded_spd,
-                              laplacian_spd, random_sparse_lsq,
-                              random_sparse_spd, solve)
+                              LSQProblem, ParallelSolveResult, SPDProblem,
+                              Schedule, SolveResult, a_norm_sq, as_operator,
+                              block_banded_spd, laplacian_spd,
+                              random_sparse_lsq, random_sparse_spd,
+                              scheduled_tau, solve, solve_distributed)
 
 __all__ = [
     "BlockBandedOp",
@@ -19,6 +21,7 @@ __all__ = [
     "DenseOp",
     "EllOp",
     "LSQProblem",
+    "ParallelSolveResult",
     "SPDProblem",
     "Schedule",
     "SolveResult",
@@ -28,5 +31,7 @@ __all__ = [
     "laplacian_spd",
     "random_sparse_lsq",
     "random_sparse_spd",
+    "scheduled_tau",
     "solve",
+    "solve_distributed",
 ]

@@ -1,10 +1,13 @@
 """repro_torch.core — the paper's randomized solvers on PyTorch: problems
-(``spd``, ``kaczmarz``), matrix formats (``operators``) and the sequential
-engine with its front door ``solve`` (``engine``)."""
+(``spd``, ``kaczmarz``), matrix formats (``operators``), the sequential
+engine with its front door ``solve`` (``engine``) and the distributed
+engine on ``torch.distributed`` (``distributed``)."""
 
-from repro_torch.core import engine
-from repro_torch.core.engine import (Schedule, SolveResult, draw_picks,
-                                     record_metrics, sample_rows, solve,
+from repro_torch.core import distributed, engine
+from repro_torch.core.distributed import solve_distributed
+from repro_torch.core.engine import (ParallelSolveResult, Schedule,
+                                     SolveResult, draw_picks, record_metrics,
+                                     sample_rows, scheduled_tau, solve,
                                      solve_sequential)
 from repro_torch.core.kaczmarz import LSQProblem, random_sparse_lsq, row_norms_sq
 from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp, EllOp,
@@ -19,12 +22,14 @@ __all__ = [
     "DenseOp",
     "EllOp",
     "LSQProblem",
+    "ParallelSolveResult",
     "SPDProblem",
     "Schedule",
     "SolveResult",
     "a_norm_sq",
     "as_operator",
     "block_banded_spd",
+    "distributed",
     "draw_picks",
     "ell_from_dense",
     "engine",
@@ -34,7 +39,9 @@ __all__ = [
     "record_metrics",
     "row_norms_sq",
     "sample_rows",
+    "scheduled_tau",
     "solve",
+    "solve_distributed",
     "solve_sequential",
     "to_unit_diagonal",
 ]

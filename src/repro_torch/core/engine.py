@@ -1,5 +1,6 @@
-"""The sequential solver engine (port of the sequential part of
-``repro/core/engine.py``).
+"""The solver engine's schedules, result types and front door (port of
+the sequential part of ``repro/core/engine.py``; the distributed engine is
+``core/distributed.py``).
 
 Two actions over one pick stream:
 
@@ -13,16 +14,20 @@ Each record chunk is one sweep call on the operator (``op.gs_sweep`` /
 is one launch of its sweep kernel, on the CPU its plain version; a dense
 operator has no kernel and steps through its picks in plain PyTorch.  On
 the block-banded format a GS pick is a whole block row (``op.nb``
-directions); it has no sequential Kaczmarz action (the reference's banded
-Kaczmarz runs only in its distributed engine).
+directions); it has no sequential Kaczmarz action (the banded Kaczmarz
+runs in the distributed engine).
 
 Picks are drawn with a ``torch.Generator``: a different stream from the
 reference's ``jax.random`` threefry key.  ``picks=`` overrides the drawn
 stream, which is how the tests feed both packages the same directions.
 
+A ``Schedule`` with ``rounds``/``local_steps`` runs the distributed
+engine on a ``torch.distributed`` process group (``solve(..., group=)``).
+
 Not ported yet: the bounded-delay simulator (ROADMAP queue 1 item 6), the
-distributed engine (item 8), the serving unit (item 4) and block GS with
-``gs_block > 1`` on the dense and CSR formats.
+serving unit (item 4), the distributed strategies other than Kaczmarz
+under the delta all-reduce (item 8) and block GS with ``gs_block > 1`` on
+the dense and CSR formats.
 """
 from __future__ import annotations
 
@@ -41,22 +46,110 @@ class SolveResult(NamedTuple):
     iters: torch.Tensor    # (records,) iteration index of each record
 
 
-class Schedule(NamedTuple):
-    """Execution plan for ``solve``: ``num_iters`` sequential steps,
-    recorded every ``record_every`` steps (``0``: once, at the end).
+class ParallelSolveResult(NamedTuple):
+    x: torch.Tensor        # (n, k) the calling rank's replica
+    err_sq: torch.Tensor   # (rounds, k)
+    resid: torch.Tensor    # (rounds, k)
+    tau: int               # effective staleness bound of the schedule
+    #: per-round measured exchange lag of the overlapped sync; the port
+    #: has no overlapped sync yet, so it is always None.
+    lag: torch.Tensor | None = None
+    #: analytic per-round wire volume: bytes one rank contributes to the
+    #: sync collective each round (0 at P = 1, where none runs).
+    bytes_per_round: float | None = None
 
-    The reference's other modes (the bounded-delay simulator's ``tau``,
-    the distributed ``rounds``/``local_steps`` and their options) are not
-    ported yet (ROADMAP queue 1 items 6 and 8); their fields come with
-    them.
+
+def scheduled_tau(num_workers: int, local_steps: int, *,
+                  shared_stream: bool = False,
+                  local_sampling: bool = False,
+                  overlap: bool = False) -> int:
+    """Staleness bound of the periodic-synchronization schedule.
+
+    ``shared_stream=False`` (per-worker direction streams, the RGS scheme):
+    a worker's read can miss every other worker's in-round updates, so
+    tau = (P - 1) * local_steps — the paper's Thm 4.1(a) bound.
+
+    ``shared_stream=True`` (one global i.i.d. pick stream partitioned by
+    owner, the RK scheme): within a round a pick misses at most the other
+    workers' *earlier* in-round updates, so tau = local_steps - 1 (and 0 at
+    P = 1, where every pick is owned and nothing is ever stale).
+
+    ``local_sampling=True`` (per-worker local sampling, the sparse-RK
+    scheme): every worker's ``local_steps`` picks are useful updates, so
+    the round's interleaved shared stream carries P * local_steps picks
+    and the shared-stream bound applies to that length —
+    tau = P * local_steps - 1.
+
+    ``overlap=True`` (double-buffered sync): round r's exchange is issued
+    concurrently with round r+1's local sweep, so a worker's reads
+    additionally miss the *previous round's* foreign updates — the bound
+    grows by exactly that payload:
+
+    * per-worker streams: the other P-1 workers' full previous round,
+      + (P - 1) * local_steps;
+    * shared stream: the whole previous round of the stream,
+      + local_steps;
+    * local sampling: the other workers' previous-round picks,
+      + (P - 1) * local_steps.
+
+    At P = 1 there is nothing in flight and the term is 0.
+    """
+    extra = 0
+    if overlap and num_workers > 1:
+        if local_sampling or not shared_stream:
+            extra = (num_workers - 1) * local_steps
+        else:
+            extra = local_steps
+    if local_sampling:
+        shared_stream = True
+        local_steps = num_workers * local_steps
+    if shared_stream:
+        return extra + (0 if num_workers == 1 else local_steps - 1)
+    return extra + (num_workers - 1) * local_steps
+
+
+class Schedule(NamedTuple):
+    """Execution plan for ``solve``: exactly one of two modes.
+
+    * sequential:  ``num_iters`` > 0 steps, recorded every
+      ``record_every`` steps (``0``: once, at the end);
+    * distributed: ``rounds`` > 0 rounds of ``local_steps`` > 0 local
+      updates each, a sync and a record after every round (needs a
+      process group).
+
+    The reference's other fields (the bounded-delay simulator's ``tau``
+    and the distributed ``partition``/``overlap``/``compress``) are not
+    ported yet (ROADMAP queue 1 items 6 and 8); they come with the code
+    that reads them.
     """
     num_iters: int = 0
+    rounds: int = 0
+    local_steps: int = 0
     record_every: int = 0
 
+    @property
+    def distributed(self) -> bool:
+        return self.rounds > 0
+
     def validate(self) -> "Schedule":
-        if self.num_iters <= 0:
+        """Reject ambiguous mode mixtures with a message naming the fields
+        (the reference's checks on these fields)."""
+        if self.distributed and self.num_iters > 0:
             raise ValueError(
-                f"a sequential Schedule needs num_iters > 0 (got {self})")
+                "ambiguous Schedule: rounds/local_steps (distributed) "
+                "cannot be combined with num_iters (sequential) — got "
+                f"{self}")
+        if self.distributed and self.local_steps <= 0:
+            raise ValueError(
+                f"a distributed Schedule needs local_steps > 0 (got {self})")
+        if not self.distributed:
+            if self.num_iters <= 0:
+                raise ValueError(
+                    f"a sequential Schedule needs num_iters > 0 (got {self})")
+            if self.local_steps > 0:
+                raise ValueError(
+                    "local_steps without rounds is ambiguous — set rounds > 0 "
+                    f"for distributed execution (got {self})")
         return self
 
 
@@ -159,8 +252,8 @@ def solve_sequential(
     if action == "rk" and isinstance(op, BlockBandedOp):
         raise NotImplementedError(
             "sequential RK needs per-row access (dense, ELL or CSR); the "
-            "banded Kaczmarz action belongs to the distributed engine, not "
-            "ported yet (ROADMAP queue 1 item 8)")
+            "banded Kaczmarz action belongs to the distributed engine "
+            "(Schedule(rounds=..., local_steps=...) with a group)")
     rec = resolve_record_every(num_iters, record_every)
     if picks is None:
         if generator is None:
@@ -209,6 +302,9 @@ def solve(
     rows_per_panel: int | None = None,
     storage_dtype=None,
     x0: torch.Tensor | None = None,
+    group=None,
+    sync: str = "auto",
+    seed: int | None = None,
 ):
     """One front door for the solver family, on the device of the
     problem's tensors.
@@ -220,8 +316,16 @@ def solve(
     fit; a smaller width keeps each row's largest), ``rows_per_panel``
     the CSR panel layout (``None``: 8), ``storage_dtype`` the coefficient
     precision (``None`` keeps the input dtype; the iterate, ``b`` and all
-    accumulation stay f32).  The direction stream comes from ``generator``
-    or, when given, ``picks``.
+    accumulation stay f32).
+
+    A sequential ``schedule`` draws its direction stream from
+    ``generator`` or takes ``picks``.  A distributed one (``rounds``,
+    ``local_steps``) runs ``core.distributed.solve_distributed`` on the
+    ``torch.distributed`` process group ``group`` (the counterpart of the
+    reference's ``mesh``): every rank calls ``solve`` with the whole
+    problem, ``sync`` picks the collective, and the streams come from
+    ``seed`` (the same on every rank) or from ``picks``; the result is a
+    ``ParallelSolveResult`` holding the calling rank's replica.
     """
     if action is None:
         action = "rk" if hasattr(problem, "sigma_min") else "gs"
@@ -235,6 +339,19 @@ def solve(
         n_x = op.shape[0] if action == "gs" else op.shape[1]
         x0 = torch.zeros((n_x, problem.b.shape[1]), dtype=problem.b.dtype,
                          device=problem.b.device)
+    if schedule.distributed:
+        if group is None:
+            raise ValueError("a distributed Schedule needs a group (a "
+                             "torch.distributed process group)")
+        if generator is not None:
+            raise ValueError("a distributed solve draws its streams from "
+                             "seed=, the same on every rank, not from a "
+                             "generator")
+        from repro_torch.core.distributed import solve_distributed
+        return solve_distributed(
+            op, problem.b, x0, problem.x_star, action=action, group=group,
+            rounds=schedule.rounds, local_steps=schedule.local_steps,
+            beta=beta, sync=sync, seed=seed, picks=picks)
     return solve_sequential(
         op, problem.b, x0, problem.x_star, action=action,
         num_iters=schedule.num_iters, generator=generator, picks=picks,

@@ -449,11 +449,12 @@ class CsrOp:
                                 m=self._shape[0])
 
     def row_norms_sq(self) -> torch.Tensor:
-        """Per-row ||A_i||² — always f32."""
-        d = self.data.float()
-        out = torch.zeros((self._shape[0],), dtype=torch.float32,
-                          device=self.device)
-        return out.index_add_(0, self.row_id.long(), d * d)
+        """Per-row ||A_i||² — always f32, each row summed over its own
+        window (``padded_rows()``), so the result is the same from run to
+        run on the card too (a segment sum by ``index_add_`` adds with
+        atomics there, in no fixed order)."""
+        v = self.padded_rows()[0][:self._shape[0]].float()
+        return (v * v).sum(1)
 
     def gs_sweep(self, b, x, picks, *, beta: float = 1.0,
                  write_base: int = 0) -> torch.Tensor:

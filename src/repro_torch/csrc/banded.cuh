@@ -1,5 +1,5 @@
 // Band-tile products shared by the block-banded kernels (bbmv.cu,
-// banded_gs.cu).
+// banded_gs.cu: the GS and RK sweeps).
 //
 // A CTA of kBandThreads threads owns `block` rows x `kt` columns of
 // outputs, at most kBandThreads * OPT of them, OPT per thread: output
@@ -33,7 +33,8 @@ constexpr int kMaxTileCols = 64;
 
 // Columns per CTA for OPT outputs per thread.  The wrappers (kernels/ops.py)
 // pass block <= 256, so kt >= 1 and one CTA's shared memory stays under the
-// 48 KB a launch gets without opting in.
+// 48 KB a launch gets without opting in (at most 36 KB with the banded RK
+// sweep's block x kt floats of gn: block 256, kt 2).
 inline int band_tile_cols(int block, int k, int opt) {
   int kt = kBandThreads * opt / block;
   kt = kt < kMaxTileCols ? kt : kMaxTileCols;

@@ -1,13 +1,23 @@
 // Fused sequential sweeps over padded sparse rows: coordinate Gauss-Seidel
-// and Kaczmarz.
+// and Kaczmarz, the latter also on two carries.
 //
-// Replaces the TPU kernels src/repro/kernels/sweep_csr.py::sweep_rows_gs
-// and ::sweep_rows_rk (Pallas, one grid step per pick, iterate resident in
-// VMEM).  Same arithmetic, per pick r and RHS column c:
+// Replaces the TPU kernels src/repro/kernels/sweep_csr.py::sweep_rows_gs,
+// ::sweep_rows_rk and ::sweep_rows_rk_delta (Pallas, one grid step per
+// pick, iterate resident in VMEM).  Same arithmetic, per pick r and RHS
+// column c:
 //   GS:  gamma = b[r,c] - sum_w vals[r,w] * x[cols[r,w], c]
 //        x[write_base + r, c] += beta * gamma
 //   RK:  g = (b[r,c] - sum_w vals[r,w] * x[cols[r,w], c]) / rn[r]
 //        x[cols[r,w], c] += (beta * vals[r,w]) * g    for every real slot w
+//   RK delta (the distributed local phase): the RK step reads and writes
+//        the replica x, and the same contribution is also added to the
+//        round delta d, which the engine all-reduces at round end.
+//
+// The RK contribution is rounded explicitly, (beta * v) then * g, then the
+// add (__fmul_rn / __fadd_rn: no contraction to an FMA), as the reference
+// and the plain version round it.  So both carries of the delta sweep see
+// bitwise the same contributions in the same order: from x = d = 0 the two
+// outputs are bitwise equal.
 //
 // What bounds it.  Each step reads what the previous step wrote, so a
 // column is one chain of `steps` dependent steps.  The bytes a step needs
@@ -80,11 +90,13 @@ __global__ void __launch_bounds__(32 * kColsPerBlock)
   }
 }
 
-template <typename V, typename I>
+// kDelta: also add every contribution to the delta carry d (which no step
+// reads).  Without it d is not touched.
+template <typename V, typename I, bool kDelta>
 __global__ void __launch_bounds__(32 * kColsPerBlock)
     rk_kernel(const V* __restrict__ vals, const I* __restrict__ cols, const float* __restrict__ b,
-              const float* __restrict__ rn, float* x, const int* __restrict__ picks, int width,
-              int k, int steps, float beta) {
+              const float* __restrict__ rn, float* x, float* d, const int* __restrict__ picks,
+              int width, int k, int steps, float beta) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
   if (c >= k) return;  // warp-uniform
@@ -97,8 +109,10 @@ __global__ void __launch_bounds__(32 * kColsPerBlock)
     for (int w = lane; w < width; w += 32) {
       const float v = to_f32(vr[w]);
       if (v != 0.f) {
-        float* xj = x + (size_t)(int)cr[w] * k + c;
-        *xj = *xj + (beta * v) * g;
+        const size_t j = (size_t)(int)cr[w] * k + c;
+        const float contrib = __fmul_rn(__fmul_rn(beta, v), g);
+        x[j] = __fadd_rn(x[j], contrib);
+        if constexpr (kDelta) d[j] = __fadd_rn(d[j], contrib);
       }
     }
     __syncwarp();
@@ -125,8 +139,19 @@ inline dim3 grid_for(int k) { return dim3((k + kColsPerBlock - 1) / kColsPerBloc
                       const void* picks, int width, int k, int steps, int limit, float beta,    \
                       void* stream) {                                                            \
     launch_check(picks, steps, limit, (cudaStream_t)stream);                                     \
-    rk_kernel<V, I><<<grid_for(k), 32 * kColsPerBlock, 0, (cudaStream_t)stream>>>(              \
-        (const V*)vals, (const I*)cols, (const float*)b, (const float*)rn, (float*)x,           \
+    rk_kernel<V, I, false><<<grid_for(k), 32 * kColsPerBlock, 0, (cudaStream_t)stream>>>(       \
+        (const V*)vals, (const I*)cols, (const float*)b, (const float*)rn, (float*)x, nullptr,  \
+        (const int*)picks, width, k, steps, beta);                                               \
+    return (int)cudaGetLastError();                                                              \
+  }
+
+#define RK_DELTA_ENTRY(NAME, V, I)                                                               \
+  extern "C" int NAME(const void* vals, const void* cols, const void* b, const void* rn, void* x, \
+                      void* d, const void* picks, int width, int k, int steps, int limit,       \
+                      float beta, void* stream) {                                                \
+    launch_check(picks, steps, limit, (cudaStream_t)stream);                                     \
+    rk_kernel<V, I, true><<<grid_for(k), 32 * kColsPerBlock, 0, (cudaStream_t)stream>>>(        \
+        (const V*)vals, (const I*)cols, (const float*)b, (const float*)rn, (float*)x, (float*)d, \
         (const int*)picks, width, k, steps, beta);                                               \
     return (int)cudaGetLastError();                                                              \
   }
@@ -137,3 +162,6 @@ GS_ENTRY(sweep_rows_gs_bf16_i32, __nv_bfloat16, int32_t)
 RK_ENTRY(sweep_rows_rk_f32_i32, float, int32_t)
 RK_ENTRY(sweep_rows_rk_bf16_i16, __nv_bfloat16, int16_t)
 RK_ENTRY(sweep_rows_rk_bf16_i32, __nv_bfloat16, int32_t)
+RK_DELTA_ENTRY(sweep_rows_rk_delta_f32_i32, float, int32_t)
+RK_DELTA_ENTRY(sweep_rows_rk_delta_bf16_i16, __nv_bfloat16, int16_t)
+RK_DELTA_ENTRY(sweep_rows_rk_delta_bf16_i32, __nv_bfloat16, int32_t)

@@ -13,7 +13,8 @@ build or launch raises.
 ``launch_counts()`` reports how often each kernel was launched since the
 last ``reset_launch_counts()``; only the launchers (``sweep_csr.py``,
 ``spmv_csr.py``, ``spmv_ell.py``, ``bbmv.py``, ``banded_gs.py``) increment
-them, where they launch.
+them, where they launch.  The counters are per process: a distributed run
+counts each rank's launches in that rank's process.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.kernels import bbmv as _bbmv
 from repro_torch.kernels import spmv_ell as _spmv_ell
 
 KERNELS = ("sweep_rows_gs", "sweep_rows_rk", "spmv_csr_sliced",
-           "spmv_csr_sliced_prefetch", "spmv_ell", "bbmv", "banded_gs_sweep")
+           "spmv_csr_sliced_prefetch", "spmv_ell", "bbmv", "banded_gs_sweep",
+           "sweep_rows_rk_delta", "banded_rk_sweep")
 _COUNTERS = (sweep_csr.LAUNCHES, spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
              _bbmv.LAUNCHES, banded_gs.LAUNCHES)
 
@@ -136,6 +138,34 @@ def sweep_rows_rk(vals, cols, b, rn, x, picks, *, beta=1.0):
     return ref.sweep_rows_rk_ref(vals, cols, b, rn, x, picks, beta=beta)
 
 
+def sweep_rows_rk_delta(vals, cols, b, rn, x, d, picks, *, beta=1.0):
+    """Fused two-carry Kaczmarz sweep over padded rows, the distributed
+    local phase: each step reads and updates the replica ``x`` and adds
+    the same contribution to the round delta ``d``.  Returns new
+    ``(x, d)``.
+
+    vals/cols: (m, width) row windows of a slab (global column ids);
+    b: (m, k) f32; rn: (m,) f32 squared row norms with zero rows guarded
+    by the caller; x, d: (n, k) f32; picks: (steps,) slab row ids.
+    """
+    name = "sweep_rows_rk_delta"
+    cuda = _on_cuda(name, vals, cols, b, rn, x, d)
+    _check_windows(name, vals, cols)
+    _check_f32(name, b=b, rn=rn, x=x, d=d)
+    m = vals.shape[0]
+    if (b.shape != (m, x.shape[1]) or rn.shape != (m,) or x.ndim != 2
+            or d.shape != x.shape):
+        raise ValueError(f"{name}: b {tuple(b.shape)} / rn {tuple(rn.shape)} "
+                         f"/ x {tuple(x.shape)} / d {tuple(d.shape)} do not "
+                         f"fit {m} rows")
+    picks = _picks(name, picks, m, x)
+    if cuda:
+        return sweep_csr.sweep_rows_rk_delta(vals, cols, b, rn, x, d, picks,
+                                             beta=beta, limit=m)
+    return ref.sweep_rows_rk_delta_ref(vals, cols, b, rn, x, d, picks,
+                                       beta=beta)
+
+
 def _check_spmv(name, vals, cols, x, m, rows_per_panel):
     _check_windows(name, vals, cols)
     _check_f32(name, x=x)
@@ -173,16 +203,22 @@ def spmv_csr_sliced_prefetch(vals, cols, panel_nnz, x, *, m, rows_per_panel):
                                             rows_per_panel=rows_per_panel)
 
 
-def spmv_ell(vals, cols, x):
-    """``y = A @ x`` (n, k) f32 from ELL windows vals/cols (n, width) with
-    global column ids; x: (n, k) f32."""
+def spmv_ell(vals, cols, x, *, n_cols: int | None = None):
+    """``y = A @ x`` (rows, k) f32 from row windows vals/cols (rows, width)
+    with global column ids; x: (n_cols, k) f32.
+
+    ``n_cols`` is the column count of the operator the windows come from
+    (its column ids lie in [0, n_cols)): ``None`` for a square ELL
+    operator (n_cols = rows), the operator's ``shape[1]`` for a slab of
+    its padded rows (the distributed engine's residual)."""
     name = "spmv_ell"
     cuda = _on_cuda(name, vals, cols, x)
     _check_windows(name, vals, cols)
     _check_f32(name, x=x)
-    if x.ndim != 2 or x.shape[0] != vals.shape[0]:
+    n_cols = vals.shape[0] if n_cols is None else n_cols
+    if x.ndim != 2 or x.shape[0] != n_cols:
         raise ValueError(f"{name}: x {tuple(x.shape)} does not fit "
-                         f"{vals.shape[0]} rows")
+                         f"{n_cols} columns")
     if cuda:
         return _spmv_ell.spmv_ell(vals, cols, x)
     return ref.spmv_ell_ref(vals, cols, x)
@@ -243,3 +279,41 @@ def banded_gs_sweep(A_bands, b, xw, picks, *, block: int, bands: int,
                                          bands=bands, beta=beta, limit=nb)
     return ref_banded.banded_gs_sweep_ref(A_bands, b, xw, picks, block=block,
                                           bands=bands, beta=beta)
+
+
+def banded_rk_sweep(A_bands, b, rn, xw, dw, picks, gates, *, block: int,
+                    bands: int, beta: float = 1.0):
+    """Fused masked banded Kaczmarz sweep, the distributed local phase of
+    banded RK; returns new ``(xw, dw)``.
+
+    A_bands: (nb, 2*bands+1, block, block) with border tiles zero (a
+    rank's rows of ``BlockBandedOp.packed_band_tiles()``); b: (nb*block, k)
+    f32; rn: (nb, block) f32 squared row norms with zero rows guarded by
+    the caller; xw, dw: halo-padded windows ((nb + 2*bands)*block, k) f32;
+    picks: (steps,) block-row ids in [0, nb); gates: (steps,) integers, 0
+    where the pick is not the caller's (same reads, exact-zero updates).
+    """
+    name = "banded_rk_sweep"
+    cuda = _on_cuda(name, A_bands, b, rn, xw, dw)
+    nb = _check_bands(name, A_bands, bands, block, cuda)
+    _check_f32(name, b=b, rn=rn, xw=xw, dw=dw)
+    k = b.shape[-1]
+    if (b.shape != (nb * block, k) or rn.shape != (nb, block)
+            or xw.shape != ((nb + 2 * bands) * block, k)
+            or dw.shape != xw.shape):
+        raise ValueError(f"{name}: b {tuple(b.shape)} / rn {tuple(rn.shape)} "
+                         f"/ xw {tuple(xw.shape)} / dw {tuple(dw.shape)} do "
+                         f"not fit {nb} blocks of {block} with {bands} halo "
+                         "blocks a side")
+    picks = _picks(name, picks, nb, xw)
+    if (gates.shape != picks.shape or gates.device != xw.device
+            or gates.dtype not in (torch.int32, torch.int64, torch.bool)):
+        raise ValueError(f"{name}: gates must be integers of the picks' "
+                         "shape on the windows' device")
+    gates = gates.to(torch.int32).contiguous()
+    if cuda:
+        return banded_gs.banded_rk_sweep(A_bands, b, rn, xw, dw, picks, gates,
+                                         block=block, bands=bands, beta=beta,
+                                         limit=nb)
+    return ref_banded.banded_rk_sweep_ref(A_bands, b, rn, xw, dw, picks, gates,
+                                          block=block, bands=bands, beta=beta)

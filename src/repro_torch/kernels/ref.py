@@ -102,21 +102,23 @@ def gs_step(vals, cols, b, x, r: int, *, beta: float, write_base: int = 0):
     x[write_base + r] += beta * gamma
 
 
-def rk_scatter(x, vals_r, cols_r, g, beta: float):
-    """Kaczmarz row action on ``x`` in place:
-    ``x[cols_r] += (beta * vals_r) * g``.  Slots with value 0 (the padding)
-    add nothing, exactly as the CUDA kernel skips them."""
+def rk_contrib(vals_r, g, beta: float):
+    """Kaczmarz row action's contribution ``(beta * vals_r) * g`` per slot
+    (width, k); slots with value 0 (the padding) contribute exact zeros,
+    as the CUDA kernel skips them."""
     v = vals_r.float()
     upd = (beta * v)[:, None] * g[None, :]
-    upd = upd.masked_fill((v == 0)[:, None], 0.0)
-    x.index_add_(0, cols_r.long(), upd)
+    return upd.masked_fill((v == 0)[:, None], 0.0)
 
 
-def rk_step(vals, cols, b, rn, x, r: int, *, beta: float):
+def rk_step(vals, cols, b, rn, x, r: int, *, beta: float, d=None):
     """One Kaczmarz step on ``x`` in place:
-    ``g = (b[r] - <A_r, x>) / rn[r]``, then ``rk_scatter``."""
+    ``g = (b[r] - <A_r, x>) / rn[r]``, then ``x[cols_r] += rk_contrib``.
+    With a delta carry ``d``, the same contribution is added to it too."""
     g = (b[r] - window_dot(vals[r], cols[r], x)) / rn[r]
-    rk_scatter(x, vals[r], cols[r], g, beta)
+    upd = rk_contrib(vals[r], g, beta)
+    for carry in (x,) if d is None else (x, d):
+        carry.index_add_(0, cols[r].long(), upd)
 
 
 def sweep_rows_gs_ref(vals, cols, b, x, picks, *, beta: float = 1.0,
@@ -134,3 +136,14 @@ def sweep_rows_rk_ref(vals, cols, b, rn, x, picks, *, beta: float = 1.0):
     for r in picks.tolist():
         rk_step(vals, cols, b, rn, x, r, beta=beta)
     return x
+
+
+def sweep_rows_rk_delta_ref(vals, cols, b, rn, x, d, picks, *,
+                            beta: float = 1.0):
+    """``len(picks)`` sequential Kaczmarz steps on the replica ``x`` (read
+    and written) and the round delta ``d`` (written only), each step's
+    contribution added to both; returns new ``(x, d)``."""
+    x, d = x.clone(), d.clone()
+    for r in picks.tolist():
+        rk_step(vals, cols, b, rn, x, r, beta=beta, d=d)
+    return x, d

@@ -1,8 +1,8 @@
 """CUDA launchers of the fused sequential sweeps (``csrc/sweep_csr.cu``).
 
-Port of ``repro/kernels/sweep_csr.py::sweep_rows_gs`` / ``::sweep_rows_rk``:
-a whole run of ``len(picks)`` sequential row updates in one launch, one
-warp per RHS column.  The kernel design and what bounds it are in the
+Port of ``repro/kernels/sweep_csr.py::sweep_rows_gs`` / ``::sweep_rows_rk``
+/ ``::sweep_rows_rk_delta``: a whole run of ``len(picks)`` sequential row
+updates in one launch, one warp per RHS column.  The kernel design and what bounds it are in the
 source's header note.
 
 These functions take tensors already checked by ``kernels/ops.py`` (CUDA,
@@ -20,11 +20,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"sweep_rows_gs": 0, "sweep_rows_rk": 0}
+LAUNCHES = {"sweep_rows_gs": 0, "sweep_rows_rk": 0,
+            "sweep_rows_rk_delta": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
 _RK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_RK_DELTA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 
 
 def sweep_rows_gs(vals, cols, b, x, picks, *, beta: float, write_base: int,
@@ -64,3 +66,23 @@ def sweep_rows_rk(vals, cols, b, rn, x, picks, *, beta: float, limit: int):
     _build.check_launch(err, "sweep_rows_rk")
     LAUNCHES["sweep_rows_rk"] += 1
     return out
+
+
+def sweep_rows_rk_delta(vals, cols, b, rn, x, d, picks, *, beta: float,
+                        limit: int):
+    """Two-carry Kaczmarz sweep on the card.  Returns new ``(x, d)``
+    (both cloned, then updated in place by the kernel)."""
+    width = vals.shape[1]
+    k = x.shape[1]
+    x_out, d_out = x.clone(), d.clone()
+    if picks.numel() == 0 or k == 0:
+        return x_out, d_out
+    fn = _build.c_entry("sweep_csr", "sweep_rows_rk_delta", vals.dtype,
+                        cols.dtype, _RK_DELTA_ARGS)
+    err = fn(vals.data_ptr(), cols.data_ptr(), b.data_ptr(), rn.data_ptr(),
+             x_out.data_ptr(), d_out.data_ptr(), picks.data_ptr(), width, k,
+             picks.numel(), int(limit), float(beta),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(err, "sweep_rows_rk_delta")
+    LAUNCHES["sweep_rows_rk_delta"] += 1
+    return x_out, d_out
