@@ -28,9 +28,9 @@ the GS strategies, dense RK, ``overlap``, ``compress`` and
 Pick streams: ``picks=`` overrides them; otherwise they are drawn with a
 ``torch.Generator`` from one ``seed`` (not the reference's threefry
 stream).  ``banded_rk`` draws one global stream of block rows ∝ panel
-norms, the same on every rank; ``sparse_rk`` draws each rank's rows ∝ its
-slab's row norms from the seed folded with the rank (the counterpart of
-``fold_in(key, rank)``).
+norms, the same on every rank, from ``seed``; ``sparse_rk`` draws each
+rank's rows ∝ its slab's row norms from ``seed * P + rank`` (the
+counterpart of ``fold_in(key, rank)``).
 
 The result holds the calling rank's replica.  Replicas agree to the last
 bits only: each rank applied its own updates in its kernel and the
@@ -46,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.engine import (ParallelSolveResult, _colsum,
                                      sample_rows, scheduled_tau)
-from repro_torch.core.operators import BlockBandedOp, CsrOp, EllOp
+from repro_torch.core.operators import CsrOp, EllOp
 from repro_torch.kernels import ops
 
 #: action x format x sync -> strategy, the rows of the reference's table
@@ -56,30 +56,6 @@ _DISTRIBUTED_STRATEGIES = {
     ("rk", "CsrOp", "psum"): "sparse_rk",
     ("rk", "EllOp", "psum"): "sparse_rk",
 }
-
-_MASK64 = (1 << 64) - 1
-
-
-def resolve_sync(action: str, op) -> str:
-    """The reference's ``sync="auto"`` rule: RK syncs a delta, by the
-    neighbour all-to-all on formats that answer slab-neighbour queries
-    (CSR, ELL), else by the psum; GS takes the halo exchange on the
-    block-banded format, the all-to-all on CSR/ELL, else the all-gather."""
-    sparse = isinstance(op, (CsrOp, EllOp))
-    if action == "rk":
-        return "a2a" if sparse else "psum"
-    if isinstance(op, BlockBandedOp):
-        return "halo"
-    return "a2a" if sparse else "allgather"
-
-
-def fold_seed(seed: int, rank: int) -> int:
-    """A rank's seed from one seed (splitmix64 of the pair): the port's
-    counterpart of ``jax.random.fold_in(key, rank)``."""
-    z = (seed * 0x9E3779B97F4A7C15 + rank + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
 
 
 def _sync_bytes_per_round(kind: str, *, n: int, k: int,
@@ -135,10 +111,10 @@ def solve_distributed(
     """P-way solve under the periodic-synchronization schedule; call it on
     every rank of ``group`` with the same arguments.
 
-    ``sync="auto"`` resolves as the reference does (``resolve_sync``);
-    for Kaczmarz on CSR/ELL that is the a2a exchange, which is not ported
-    yet and raises: pass ``sync="psum"``, whose iterates the reference
-    pins bitwise to a2a's.  ``picks`` (else ``seed``) gives the streams:
+    ``sync="auto"`` resolves as the reference's rule does for Kaczmarz:
+    the a2a exchange on CSR/ELL, which is not ported yet and raises (pass
+    ``sync="psum"``, whose iterates the reference pins bitwise to a2a's),
+    else the psum.  The GS rules come with the GS strategies.  ``picks`` (else ``seed``) gives the streams:
     ``(rounds, P, local_steps)`` slab-local row ids for ``sparse_rk``,
     ``(rounds, local_steps)`` global block-row ids for ``banded_rk``.
     ``x0`` is not modified.
@@ -148,8 +124,8 @@ def solve_distributed(
                          f"{rounds}, {local_steps})")
     num_workers = dist.get_world_size(group)
     rank = dist.get_rank(group)
-    if sync == "auto":
-        sync = resolve_sync(action, op)
+    if sync == "auto" and action == "rk":
+        sync = "a2a" if isinstance(op, (CsrOp, EllOp)) else "psum"
     kind = _DISTRIBUTED_STRATEGIES.get((action, type(op).__name__, sync))
     if kind is None:
         if action == "rk" and sync == "a2a" and isinstance(op, (CsrOp, EllOp)):
@@ -212,7 +188,7 @@ def _sparse_rk(op, b, x0, xs, *, group, rank, num_workers, rounds,
     rn_safe = torch.where(rn_sh > 0, rn_sh, 1.0)
     if picks is None:
         gen = torch.Generator(device=b.device).manual_seed(
-            fold_seed(seed, rank))
+            seed * num_workers + rank)
         mine = sample_rows(rn_sh, rounds * local_steps,
                            generator=gen).reshape(rounds, local_steps)
     else:

@@ -319,7 +319,7 @@ def solve(
     accumulation stay f32).
 
     A sequential ``schedule`` draws its direction stream from
-    ``generator`` or takes ``picks``.  A distributed one (``rounds``,
+    ``generator`` (``seed`` raises) or takes ``picks``.  A distributed one (``rounds``,
     ``local_steps``) runs ``core.distributed.solve_distributed`` on the
     ``torch.distributed`` process group ``group`` (the counterpart of the
     reference's ``mesh``): every rank calls ``solve`` with the whole
@@ -352,6 +352,9 @@ def solve(
             op, problem.b, x0, problem.x_star, action=action, group=group,
             rounds=schedule.rounds, local_steps=schedule.local_steps,
             beta=beta, sync=sync, seed=seed, picks=picks)
+    if seed is not None:
+        raise ValueError("a sequential solve draws its stream from "
+                         "generator= (or takes picks=), not from seed=")
     return solve_sequential(
         op, problem.b, x0, problem.x_star, action=action,
         num_iters=schedule.num_iters, generator=generator, picks=picks,
