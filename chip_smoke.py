@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -87,6 +88,13 @@ def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
     print(f"  ok: {what}", flush=True)
+
+
+def live_children() -> list[str]:
+    """The ids of this process's living child processes (Linux /proc)."""
+    tasks = Path(f"/proc/{os.getpid()}/task")
+    return [pid for task in tasks.iterdir()
+            for pid in (task / "children").read_text().split()]
 
 
 def nvidia_smi() -> str:
@@ -230,8 +238,17 @@ def main() -> int:
     children = {what: subprocess.Popen(
         [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for what, code in probes.items()}
+    outs = {}
+    try:
+        for what, proc in children.items():
+            outs[what] = proc.communicate(timeout=300)[0]
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     for what, proc in children.items():
-        out, _ = proc.communicate(timeout=300)
+        out = outs[what]
         said = [ln.strip() for ln in out.splitlines()
                 if "r >= 0 && r < limit" in ln
                 or "device-side assert triggered" in ln]
@@ -1122,6 +1139,9 @@ def main() -> int:
     print(f"  banded_rk_sweep, one P = 1 main-path round ({nb} picks): "
           f"{ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick)", flush=True)
 
+    left = live_children()
+    check(not left, "no process this run started is still running "
+          f"(children: {left or 'none'})")
     print(smi, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,10 @@ from __future__ import annotations
 
 import contextlib
 import io
-import queue
 import tempfile
 import time
 import traceback
+from multiprocessing import connection, resource_tracker
 from pathlib import Path
 
 import torch
@@ -67,7 +67,7 @@ def _rank_device(backend: str, device, rank: int) -> torch.device:
     return device
 
 
-def _worker(rank, fn, args, workers, backend, device, store_dir, results):
+def _worker(rank, fn, args, workers, backend, device, store_dir, conn):
     try:
         dev = _rank_device(backend, device, rank)
         if dev.type == "cuda" and dev.index is not None:
@@ -78,10 +78,12 @@ def _worker(rank, fn, args, workers, backend, device, store_dir, results):
         buf = io.BytesIO()
         if rank == 0:
             torch.save(out, buf)
-        results.put((rank, None, buf.getvalue()))
+        conn.send((None, buf.getvalue()))
     except BaseException:
-        results.put((rank, traceback.format_exc(), None))
+        conn.send((traceback.format_exc(), None))
         raise
+    finally:
+        conn.close()
 
 
 def run_workers(fn, workers: int, *args, backend: str, device,
@@ -94,46 +96,63 @@ def run_workers(fn, workers: int, *args, backend: str, device,
     initialised breaks).  Rank 0's result comes back through
     ``torch.save``, its tensors on the CPU.  A rank that raises or dies,
     or a run longer than ``timeout`` seconds, ends every rank and raises.
+    Every process it starts has ended when it returns or raises: the ranks
+    and, unless the caller already ran one, the resource tracker that the
+    ``spawn`` method starts beside them.
     """
     _check_backend(backend)
     if backend == "nccl" and torch.cuda.device_count() < workers:
         raise ValueError(f"nccl with {workers} ranks needs {workers} cards, "
                          f"found {torch.cuda.device_count()}")
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    # Each rank answers through a pipe of its own: a pipe holds no named
+    # semaphore (a Queue does), so nothing of this call needs the tracker
+    # once the ranks have ended, and it can be stopped below.
+    tracker = resource_tracker._resource_tracker
+    own_tracker = tracker._pid is None
     with tempfile.TemporaryDirectory() as store_dir:
+        pipes = [ctx.Pipe(duplex=False) for _ in range(workers)]
         procs = [ctx.Process(target=_worker,
                              args=(r, fn, args, workers, backend, device,
-                                   store_dir, results))
+                                   store_dir, pipes[r][1]))
                  for r in range(workers)]
-        for p in procs:
-            p.start()
         done = False
         try:
+            for p in procs:
+                p.start()
+            for _, send in pipes:
+                send.close()
+            pending = {recv: r for r, (recv, _) in enumerate(pipes)}
             payload = {}
             deadline = time.monotonic() + timeout
-            while len(payload) < workers:
-                try:
-                    rank, err, data = results.get(timeout=1.0)
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if p.exitcode not in (None, 0)]
-                    if dead:
-                        raise RuntimeError(f"rank(s) {dead} died without a "
+            while pending:
+                ready = connection.wait(list(pending), timeout=1.0)
+                for recv in ready:
+                    rank = pending.pop(recv)
+                    try:
+                        err, data = recv.recv()
+                    except EOFError:
+                        raise RuntimeError(f"rank {rank} died without a "
                                            "result") from None
-                    if time.monotonic() > deadline:
-                        raise TimeoutError(f"{workers} ranks did not finish "
-                                           f"in {timeout} s") from None
-                    continue
-                if err is not None:
-                    raise RuntimeError(f"rank {rank} failed:\n{err}")
-                payload[rank] = data
+                    if err is not None:
+                        raise RuntimeError(f"rank {rank} failed:\n{err}")
+                    payload[rank] = data
+                if pending and time.monotonic() > deadline:
+                    raise TimeoutError(f"{workers} ranks did not finish in "
+                                       f"{timeout} s")
             done = True
         finally:
             for p in procs:
+                if p.pid is None:
+                    continue
                 p.join(timeout=60 if done else 0)
                 if p.is_alive():
-                    p.terminate()
+                    p.kill()
                     p.join()
+            for recv, send in pipes:
+                recv.close()
+                send.close()
+            if own_tracker:
+                tracker._stop()
     return torch.load(io.BytesIO(payload[0]), map_location="cpu",
                       weights_only=False)

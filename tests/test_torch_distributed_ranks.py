@@ -12,6 +12,9 @@ which perturbs every replica by an ulp or so of the delta each round:
 rel ||dx|| <= 1e-4, resid and err_sq rtol 1e-3 / atol 1e-5; ``tau`` and
 ``bytes_per_round`` exactly.
 """
+import os
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -86,6 +89,12 @@ def _port_worker(group, device, arrays):
     return out
 
 
+def _live_children():
+    """The ids of this process's living child processes (Linux /proc)."""
+    return [pid for task in Path(f"/proc/{os.getpid()}/task").iterdir()
+            for pid in (task / "children").read_text().split()]
+
+
 def _fail_on_rank_1(group, device):
     import torch.distributed as dist
     if dist.get_rank(group) == 1:
@@ -125,6 +134,12 @@ def test_four_ranks_match_reference(runs, name):
     assert (got["resid"][-1] < got["resid"][0]).all()
 
 
+def test_no_process_outlives_the_run(runs):
+    """The ranks and the resource tracker that the spawn method starts
+    beside them have all ended when ``run_workers`` returns."""
+    assert _live_children() == []
+
+
 def test_a_failing_rank_ends_the_run():
     """A rank that raises ends every rank, and the caller gets an error
     naming the failure, well inside the timeout (a hang would raise
@@ -133,3 +148,4 @@ def test_a_failing_rank_ends_the_run():
     with pytest.raises(RuntimeError, match=r"rank \d failed"):
         run_workers(_fail_on_rank_1, 2, backend="gloo", device="cpu",
                     timeout=120)
+    assert _live_children() == []
