@@ -10,8 +10,12 @@ the main paths (``repro_torch.solve`` with a default schedule, one sweep
 launch per record chunk): randomized Gauss-Seidel on
 ``random_sparse_spd(16384)`` through the CSR and the ELL formats, and on
 ``block_banded_spd(16384, block=128, bands=2)`` through the block-banded
-format; randomized Kaczmarz on ``random_sparse_lsq(32768, 4096)`` through
-CSR.  It drives the distributed Kaczmarz engine (``solve`` with
+format and through dense block Gauss-Seidel (``format="dense",
+gs_block=128``); randomized Kaczmarz on ``random_sparse_lsq(32768, 4096)``
+through CSR.  It drives the CSR matvec seam (``CsrOp.matvec(variant=)``
+for all four variants, ``matvec_segsum``), runs the autotuner CLI in a
+child process and a CSR solve under the table it wrote.  It drives the
+distributed Kaczmarz engine (``solve`` with
 ``Schedule(rounds=, local_steps=)`` and a process group; one local-phase
 launch per round) at P = 1 in this process on the LSQ problem (CSR) and
 the banded problem, and at P = 4 in four spawned processes that share the
@@ -54,6 +58,7 @@ SPD_N, SPD_ROW_NNZ, GS_SWEEPS = 16384, 16, 10
 LSQ_M, LSQ_N, LSQ_ROW_NNZ, RK_SWEEPS = 32768, 4096, 16, 3
 ELL_SWEEPS = 10             # ELL GS on the same SPD problem as CSR GS
 BLOCK, BANDS, BANDED_SWEEPS = 128, 2, 10    # block_banded_spd(SPD_N, ...)
+DENSE_SWEEPS = 10           # dense block GS (gs_block=BLOCK), same problem
 PREFIX = 2048               # picks of the kernel-vs-plain sweep checks
 SWEEP_RTOL = 1e-5           # rel ||x_kernel - x_plain|| / ||x_plain||
 SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # |y_k - y_p| <= rtol * (|A| |x|) + atol
@@ -196,6 +201,8 @@ def main() -> int:
         from repro_torch.kernels import (_build, ops, ref, ref_banded,
                                          sweep_csr)
         from repro_torch.launch.mesh import process_group, run_workers
+        from repro_torch.tune import TuningTable, runtime, use_table
+        from repro_torch.tune.table import MATVEC_VARIANTS
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e}); run "
               "from the root of a checkout", file=sys.stderr)
@@ -234,6 +241,12 @@ def main() -> int:
             "xw = torch.zeros((16, 1), device='cuda')\n"
             "ops.banded_gs_sweep(t, b, xw, torch.tensor([0, 2], "
             "device='cuda'), block=4, bands=1)\n"
+            "torch.cuda.synchronize()\n"),
+        "block_gs_sweep with block 2 of 2": head + (
+            "A = torch.eye(8, device='cuda')\n"
+            "b = torch.zeros((8, 1), device='cuda')\n"
+            "ops.block_gs_sweep(A, b, b, torch.tensor([1, 2], "
+            "device='cuda'), block=4)\n"
             "torch.cuda.synchronize()\n")}
     children = {what: subprocess.Popen(
         [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
@@ -357,6 +370,30 @@ def main() -> int:
               f"{SPMV_ATOL:g}")
         return y, float(err.max())
 
+    def segsum_check(tag, op, x, variant):
+        """The segment-sum pair over the flat layout against its plain
+        version, within the matvec tolerance."""
+        kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
+                  panel_width=op.panel_width)
+        args = (op.data, op.indices, op.row_id)
+        if variant == "segsum":
+            name = "spmv_csr"
+            y = ops.spmv_csr(*args, x, **kw)
+            want = ref.spmv_csr_segsum_ref(*args, x, **kw)
+        else:
+            name = "spmv_csr_prefetch"
+            y = ops.spmv_csr_prefetch(*args, op.panel_nnz(), x, **kw)
+            want = ref.spmv_csr_segsum_prefetch_ref(*args, op.panel_nnz(), x,
+                                                    **kw)
+        torch.cuda.synchronize()
+        scale = ref.spmv_csr_segsum_ref(op.data.abs(), op.indices, op.row_id,
+                                        x.abs(), **kw)
+        err = (y - want).abs()
+        check(bool((err <= SPMV_RTOL * scale + SPMV_ATOL).all()),
+              f"{name} {tag}: max|kernel - plain| = {float(err.max()):.3e} "
+              f"within {SPMV_RTOL:g}*(|A||x|) + {SPMV_ATOL:g}")
+        return y, float(err.max())
+
     for sd in (None, "bfloat16"):
         tag = "f32/i32" if sd is None else "bf16/i16"
         op = ops_by[("spd", sd)]
@@ -398,6 +435,12 @@ def main() -> int:
                 f"{tag} {name}", ops_by[key], x, "sliced")
             _, errs[("spmv_csr_sliced_prefetch", sd, name)] = spmv_check(
                 f"{tag} {name}", ops_by[key], x, "sliced_prefetch")
+            y_seg, errs[("spmv_csr", sd, name)] = segsum_check(
+                f"{tag} {name}", ops_by[key], x, "segsum")
+            y_pre, errs[("spmv_csr_prefetch", sd, name)] = segsum_check(
+                f"{tag} {name}", ops_by[key], x, "segsum_prefetch")
+            check(torch.equal(y_seg, y_pre), f"spmv_csr == spmv_csr_prefetch "
+                  f"bitwise, {tag} {name}")
 
     holes = ops_by[("holes", None)]
     y_plain, _ = spmv_check("f32/i32 empty panels", holes, x_lsq, "sliced")
@@ -406,6 +449,32 @@ def main() -> int:
     check(torch.equal(y_plain, y_pred),
           "spmv_csr_sliced == spmv_csr_sliced_prefetch bitwise on a pattern "
           f"with {int((holes.panel_nnz() == 0).sum())} empty panels")
+    y_seg, errs[("spmv_csr", None, "holes")] = segsum_check(
+        "f32/i32 empty panels", holes, x_lsq, "segsum")
+    y_segp, errs[("spmv_csr_prefetch", None, "holes")] = segsum_check(
+        "f32/i32 empty panels", holes, x_lsq, "segsum_prefetch")
+    check(torch.equal(y_seg, y_segp),
+          "spmv_csr == spmv_csr_prefetch bitwise on a pattern with "
+          f"{int((holes.panel_nnz() == 0).sum())} empty panels")
+    # the two matvec families add the same nonzero terms in the same order
+    print("  segment sum against sliced on the empty-panel design: bitwise "
+          f"{'equal' if torch.equal(y_seg, y_plain) else 'different'} "
+          f"(max |diff| {float((y_seg - y_plain).abs().max()):.3e})",
+          flush=True)
+    for tag, op, x in (("SPD", ops_by[("spd", None)], x_spd),
+                       ("empty panels", holes, x_lsq)):
+        kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
+                  panel_width=op.panel_width)
+        x1 = x[:, :1].contiguous()
+        args = (op.data, op.indices, op.row_id)
+        for name, full, one in (
+                ("spmv_csr", ops.spmv_csr(*args, x, **kw),
+                 ops.spmv_csr(*args, x1, **kw)),
+                ("spmv_csr_prefetch",
+                 ops.spmv_csr_prefetch(*args, op.panel_nnz(), x, **kw),
+                 ops.spmv_csr_prefetch(*args, op.panel_nnz(), x1, **kw))):
+            check(torch.equal(one[:, 0], full[:, 0]),
+                  f"{name} {tag}: column 0 at k={K} bitwise equals k=1")
 
     # bf16 values with int32 indices: a square operator with n > 32767,
     # five distinct columns per row (the diagonal and four offsets)
@@ -438,6 +507,8 @@ def main() -> int:
     check(e <= SWEEP_RTOL, f"sweep_rows_rk_delta bf16/i32: rel err {e:.3e}")
     spmv_check("bf16/i32", big, xb, "sliced")
     spmv_check("bf16/i32", big, xb, "sliced_prefetch")
+    segsum_check("bf16/i32", big, xb, "segsum")
+    segsum_check("bf16/i32", big, xb, "segsum_prefetch")
 
     def ell_check(tag, vals, cols, x):
         y = ops.spmv_ell(vals, cols, x)
@@ -597,6 +668,33 @@ def main() -> int:
         if sd is None:
             rk_args["banded_rk_sweep"] = (args, xw)
 
+    # The dense block-GS kernel on the banded problem's dense matrix (1 GiB
+    # of f32, and a bf16 copy), over the first chunk of a main-path pick
+    # stream: nb picks of BLOCK-row panels.
+    dense_ops = {sd: as_operator(banded.A, "dense", storage_dtype=sd)
+                 for sd in (None, "bfloat16")}
+    dense_picks = draw_picks(dense_ops[None], "gs", DENSE_SWEEPS * nb,
+                             generator=gen, block=BLOCK)[:nb]
+    for sd, op in dense_ops.items():
+        tag = "f32" if sd is None else "bf16"
+        kw = dict(block=BLOCK, beta=0.9)
+        got = ops.block_gs_sweep(op.A, banded.b, x_band, dense_picks, **kw)
+        want = ref.block_gs_sweep_ref(op.A, banded.b, x_band, dense_picks,
+                                      **kw)
+        torch.cuda.synchronize()
+        e = rel(got, want)
+        check(e <= SWEEP_RTOL, f"block_gs_sweep {tag} n={SPD_N} block={BLOCK} "
+              f"k={K} {nb} picks: rel err {e:.3e} <= {SWEEP_RTOL:g}")
+        errs[("block_gs_sweep", sd)] = float((got - want).abs().max())
+        again = ops.block_gs_sweep(op.A, banded.b, x_band, dense_picks, **kw)
+        check(torch.equal(again, got),
+              f"block_gs_sweep {tag}: two runs agree bitwise")
+        one = ops.block_gs_sweep(op.A, banded.b[:, :1].contiguous(),
+                                 x_band[:, :1].contiguous(), dense_picks, **kw)
+        check(torch.equal(one[:, 0], got[:, 0]),
+              f"block_gs_sweep {tag}: column 0 at k={K} bitwise equals k=1")
+    del dense_ops
+
     # ELL windows of a matrix full of magnitude ties: the card's stable
     # sort orders them as the CPU's (which the tests hold against JAX)
     lap = laplacian_spd(24, device=dev)
@@ -699,6 +797,110 @@ def main() -> int:
                              bands=BANDS,
                              generator=torch.Generator(dev).manual_seed(5),
                              schedule=gs_sched(BANDED_SWEEPS, nb)))
+    # Dense block GS on the same problem and generator seed, so on the same
+    # block-row picks: one block_gs_sweep launch per record chunk; its
+    # record matvecs are torch.matmul (no kernel, as in the reference).
+    dg = drive(f"dense block GS (gs_block {BLOCK}), {DENSE_SWEEPS} sweeps",
+               dict(block_gs_sweep=DENSE_SWEEPS),
+               lambda: solve(banded, format="dense", gs_block=BLOCK,
+                             generator=torch.Generator(dev).manual_seed(5),
+                             schedule=gs_sched(DENSE_SWEEPS, nb)))
+
+    # The CSR matvec seam: each variant launches exactly its kernel, on the
+    # CSR GS operator and on the empty-panel design.
+    variant_kernel = {"sliced": "spmv_csr_sliced",
+                      "sliced_prefetch": "spmv_csr_sliced_prefetch",
+                      "segsum": "spmv_csr", "segsum_prefetch": "spmv_csr_prefetch"}
+    for tag, op, x in (("the SPD operator", ops_by[("spd", None)], x_spd),
+                       ("the empty-panel design", holes, x_lsq)):
+        ys = {v: drive(f"CsrOp.matvec(variant={v!r}) on {tag}",
+                       {variant_kernel[v]: 1},
+                       functools.partial(op.matvec, x, variant=v))
+              for v in MATVEC_VARIANTS}
+        seg = drive(f"CsrOp.matvec_segsum on {tag}", dict(spmv_csr=1),
+                    functools.partial(op.matvec_segsum, x))
+        segp = drive(f"CsrOp.matvec_segsum(skip_empty=True) on {tag}",
+                     dict(spmv_csr_prefetch=1),
+                     functools.partial(op.matvec_segsum, x, skip_empty=True))
+        vals, cols = op.sliced_rows()
+        scale = ref.spmv_csr_sliced_ref(vals.abs(), cols, x.abs(),
+                                        m=op.shape[0])
+        check(torch.equal(ys["sliced"], ys["sliced_prefetch"])
+              and torch.equal(ys["segsum"], ys["segsum_prefetch"])
+              and torch.equal(seg, ys["segsum"])
+              and torch.equal(segp, ys["segsum"])
+              and bool(((ys["segsum"] - ys["sliced"]).abs()
+                        <= SPMV_RTOL * scale + SPMV_ATOL).all()),
+              f"matvec variants on {tag}: each predicated twin bitwise its "
+              "plain kernel, matvec_segsum bitwise variant 'segsum', segsum "
+              f"within {SPMV_RTOL:g}*(|A||x|) + {SPMV_ATOL:g} of sliced")
+
+    # The autotuner CLI in a child process (it times the four variants and
+    # three panel layouts on the card), then show and diff of its table,
+    # those two together.
+    print("  autotuner child processes:", flush=True)
+
+    def autotune(runs):
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        procs = {what: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.tune.autotune", *argv],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for what, argv in runs.items()}
+        outs = {}
+        try:
+            for what, proc in procs.items():
+                outs[what] = proc.communicate(timeout=400)[0]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for what, proc in procs.items():
+            for line in outs[what].splitlines():
+                print(f"    [{what}] {line}", flush=True)
+            check(proc.returncode == 0, f"autotune {what} exited 0 "
+                  f"({time.perf_counter() - t0:.2f} s)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tpath = str(Path(tmp) / "TUNE_torch_cuda.json")
+        autotune({"sweep": ["sweep", "--n", str(SPD_N), "--k", str(K),
+                            "--out", tpath]})
+        autotune({"show": ["show", tpath], "diff": ["diff", tpath, tpath]})
+        tuned = TuningTable.load(tpath)
+    choice = tuned.lookup(runtime.matvec_key(ops_by[("spd", None)]))
+    with use_table(tuned):
+        rpp = runtime.tuned_rows_per_panel(SPD_N)
+    check(choice in MATVEC_VARIANTS and rpp in (4, 8, 16)
+          and tuned.device_kind == torch.cuda.get_device_name(0),
+          f"the table names matvec variant {choice!r} and rows_per_panel "
+          f"{rpp} for n={SPD_N}, measured on {tuned.device_kind}")
+
+    def solve_under(table, prob, **kw):
+        with use_table(table):
+            return solve(prob, **kw)
+
+    # One CSR GS sweep under that table: its two record matvecs launch the
+    # variant it names (the first sweep of the CSR GS path's picks).
+    tg = drive(f"CSR GS, 1 sweep, under the autotuner's table (matvec "
+               f"{choice!r}, rows_per_panel {rpp})",
+               {"sweep_rows_gs": 1, variant_kernel[choice]: 2},
+               lambda: solve_under(
+                   tuned, spd, format="csr",
+                   generator=torch.Generator(dev).manual_seed(1),
+                   schedule=gs_sched(1, SPD_N)))
+    # A table naming the segment sum steers the engine's matvec to it.
+    steer = TuningTable.fresh(dev)
+    steer.record(runtime.matvec_key(holes), "segsum_prefetch",
+                 {"segsum_prefetch": 0.0})
+    rks = drive("CSR RK on the empty-panel design, 1 sweep, under a table "
+                "naming 'segsum_prefetch'",
+                dict(sweep_rows_rk=1, spmv_csr_prefetch=1),
+                lambda: solve_under(
+                    steer, lsq_holes, format="csr",
+                    generator=torch.Generator(dev).manual_seed(3),
+                    schedule=gs_sched(1, LSQ_M)))
     # The distributed engine at P = 1 on a world-size-1 gloo group: one
     # local-phase launch and one matvec per round (the residual of the
     # rank's rows), and no collective.
@@ -743,7 +945,8 @@ def main() -> int:
               f"{RESID_RTOL:g}")
 
     for tag, prob, res in (("GS", spd, gs), ("ELL GS", spd, eg),
-                           ("banded GS", banded, bg)):
+                           ("banded GS", banded, bg),
+                           ("dense block GS", banded, dg)):
         check(res.x.shape == (SPD_N, K) and bool(torch.isfinite(res.x).all()),
               f"{tag} iterate finite, shape {tuple(res.x.shape)}")
         monotone(f"{tag} (A-norm)", res.err_sq, a_norm_sq(prob.A, prob.x_star))
@@ -753,6 +956,23 @@ def main() -> int:
     e = rel(eg.x, gs.x)
     check(e <= SWEEP_RTOL, f"ELL GS and CSR GS, same picks: rel err of x "
           f"{e:.3e} <= {SWEEP_RTOL:g}")
+    # dense and banded block GS share the problem and the picks: the same
+    # function, summed in different orders
+    e = rel(dg.x, bg.x)
+    check(e <= SWEEP_RTOL, f"dense block GS and banded GS, same picks: rel "
+          f"err of x {e:.3e} <= {SWEEP_RTOL:g}")
+    check(bool((dg.resid[-1] < dg.resid[0]).all()),
+          "dense block GS: the residual falls (column 0: "
+          + ", ".join(f"{v:.4g}" for v in dg.resid[:, 0].tolist()) + ")")
+    # the tuned and steered solves repeat the first sweep of the CSR GS
+    # path and the empty-panel RK path: the same picks, another matvec
+    e = max(rel(tg.err_sq[0], gs.err_sq[0]), rel(tg.resid[0], gs.resid[0]))
+    check(e <= SWEEP_RTOL, f"CSR GS under the tuned table: first record "
+          f"within {e:.3e} <= {SWEEP_RTOL:g} of the CSR GS path's")
+    check(torch.equal(rks.x, rkh.x) and rel(rks.resid, rkh.resid)
+          <= SWEEP_RTOL, "CSR RK under the segsum_prefetch table: the "
+          "iterate bitwise, the residual within "
+          f"{rel(rks.resid, rkh.resid):.3e} of the sliced matvec's")
     check(rk.x.shape == (LSQ_N, K) and bool(torch.isfinite(rk.x).all()),
           f"RK iterate finite, shape {tuple(rk.x.shape)}")
     monotone("RK (Euclidean)", rk.err_sq, (lsq.x_star ** 2).sum(0))
@@ -842,7 +1062,8 @@ def main() -> int:
 
     print(f"  mean relative A-norm error: CSR GS {a_rel(spd, gs):.4e} and "
           f"ELL GS {a_rel(spd, eg):.4e} after {GS_SWEEPS} sweeps, banded GS "
-          f"{a_rel(banded, bg):.4e} after {BANDED_SWEEPS}; RK mean relative "
+          f"{a_rel(banded, bg):.4e} after {BANDED_SWEEPS}, dense block GS "
+          f"{a_rel(banded, dg):.4e} after {DENSE_SWEEPS}; RK mean relative "
           f"error after {RK_SWEEPS} sweeps: "
           f"{float((rk.err_sq[-1] / (lsq.x_star ** 2).sum(0)).mean()):.4e}",
           flush=True)
@@ -1138,6 +1359,88 @@ def main() -> int:
         bands=BANDS), 5)
     print(f"  banded_rk_sweep, one P = 1 main-path round ({nb} picks): "
           f"{ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick)", flush=True)
+
+    # block_gs_sweep: one main-path chunk (nb picks of BLOCK-row panels).
+    # Bytes, by the sweeps' rule: per pick its (BLOCK, n) row panel, its b
+    # block and its id, plus x once in and once out; flops: 2 * BLOCK * n
+    # * k per pick for the panel product and 3 * BLOCK * k for the update.
+    # No library call computes this serial chain; one step's panel product
+    # by torch.matmul is timed for context.
+    A_dense = banded.A
+    run = functools.partial(ops.block_gs_sweep, A_dense, banded.b, x_band,
+                            dense_picks, block=BLOCK)
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(functools.partial(
+        ref.block_gs_sweep_ref, A_dense, banded.b, x_band, dense_picks,
+        block=BLOCK), 1)
+    per_pick = BLOCK * SPD_N * val_b + BLOCK * K * 4 + 4
+    b_ms, by = bound_ms(nb * per_pick + 2 * x_band.numel() * 4,
+                        nb * (2.0 * BLOCK * SPD_N * K + 3.0 * BLOCK * K))
+    panel = A_dense[:BLOCK]
+    mm_ms = cuda_ms(lambda: panel @ x_band, 20)
+    print(f"  block_gs_sweep, one main-path chunk ({nb} picks, n={SPD_N}, "
+          f"block={BLOCK}): {ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick); plain "
+          f"{plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); no library call "
+          f"(a serial chain); one step's panel product by torch.matmul "
+          f"{mm_ms * 1e3:.3f} us", flush=True)
+    lines.append(dict(name="block_gs_sweep", route="cuda",
+                      source="src/repro_torch/csrc/block_gs.cu",
+                      replaces="src/repro/kernels/block_gs.py:84",
+                      launches=launches["block_gs_sweep"],
+                      max_abs_err=errs[("block_gs_sweep", None)], ms=ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=None))
+
+    # The segment-sum pair on both operators.  Bytes: each stored nonzero's
+    # value, index and row id once (the padding slots carry nothing this
+    # run needs), x once, y once (and panel_nnz); flops: 2 per nonzero per
+    # column.  Library yardstick: torch.sparse.mm on CSR, as for the sliced
+    # pair.
+    def segsum_entry(name, op, x, err, source_line):
+        kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
+                  panel_width=op.panel_width)
+        args = (op.data, op.indices, op.row_id)
+        if name == "spmv_csr":
+            run = functools.partial(ops.spmv_csr, *args, x, **kw)
+            plain = functools.partial(ref.spmv_csr_segsum_ref, *args, x, **kw)
+            extra = 0
+        else:
+            pn = op.panel_nnz()
+            run = functools.partial(ops.spmv_csr_prefetch, *args, pn, x, **kw)
+            plain = functools.partial(ref.spmv_csr_segsum_prefetch_ref, *args,
+                                      pn, x, **kw)
+            extra = pn.numel() * 4
+        ms = cuda_ms(run, 50)
+        plain_ms = cuda_ms(plain, 5)
+        lib, y_lib = library_spmv(op, x)
+        check(torch.allclose(y_lib, run(), rtol=1e-4, atol=1e-4),
+              f"{name}: torch.sparse.mm agrees with the kernel")
+        lib_ms = cuda_ms(lib, 50)
+        k = x.shape[1]
+        nbytes = (op.nnz * (val_b + idx_b + 4) + op.shape[1] * k * 4
+                  + op.shape[0] * k * 4 + extra)
+        b_ms, by = bound_ms(nbytes, 2.0 * op.nnz * k)
+        print(f"  {name} {op.shape} nnz={op.nnz} panel_width="
+              f"{op.panel_width}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"torch.sparse.mm {lib_ms:.4f} ms; bound {b_ms:.5f} ms ({by})",
+              flush=True)
+        return dict(name=name, route="cuda",
+                    source="src/repro_torch/csrc/spmv_csr.cu",
+                    replaces=source_line, launches=launches[name],
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=by, library_ms=lib_ms)
+
+    lines.append(segsum_entry("spmv_csr", ops_by[("spd", None)], x_spd,
+                              errs[("spmv_csr", None, "spd")],
+                              "src/repro/kernels/spmv_csr.py:121"))
+    segsum_entry("spmv_csr", holes, x_lsq, errs[("spmv_csr", None, "holes")],
+                 "src/repro/kernels/spmv_csr.py:121")
+    lines.append(segsum_entry("spmv_csr_prefetch", holes, x_lsq,
+                              errs[("spmv_csr_prefetch", None, "holes")],
+                              "src/repro/kernels/spmv_csr.py:187"))
+    segsum_entry("spmv_csr_prefetch", ops_by[("spd", None)], x_spd,
+                 errs[("spmv_csr_prefetch", None, "spd")],
+                 "src/repro/kernels/spmv_csr.py:187")
 
     left = live_children()
     check(not left, "no process this run started is still running "

@@ -6,12 +6,14 @@ sources in ``csrc/``, built with ``nvcc`` at first use).  It imports
 neither JAX nor ``repro``.  Entry points run on the card unless the caller
 passes CPU tensors or ``device="cpu"``; on the CPU every kernel wrapper
 runs its plain PyTorch version.  ``launch.mesh`` starts the processes of
-a distributed solve.
+a distributed solve; ``tune`` holds the tuning table that picks the CSR
+matvec variant and panel layout, and its autotuner CLI.
 """
 from repro_torch.core import (BlockBandedOp, CsrOp, DenseOp, EllOp,
                               LSQProblem, ParallelSolveResult, SPDProblem,
                               Schedule, SolveResult, a_norm_sq, as_operator,
-                              block_banded_spd, laplacian_spd,
+                              block_banded_spd, block_gs_solve, dense_spd,
+                              laplacian_spd,
                               random_sparse_lsq, random_sparse_spd,
                               scheduled_tau, solve, solve_distributed)
 
@@ -28,6 +30,8 @@ __all__ = [
     "a_norm_sq",
     "as_operator",
     "block_banded_spd",
+    "block_gs_solve",
+    "dense_spd",
     "laplacian_spd",
     "random_sparse_lsq",
     "random_sparse_spd",

@@ -1,7 +1,8 @@
 """repro_torch.core — the paper's randomized solvers on PyTorch: problems
 (``spd``, ``kaczmarz``), matrix formats (``operators``), the sequential
-engine with its front door ``solve`` (``engine``) and the distributed
-engine on ``torch.distributed`` (``distributed``)."""
+engine with its front door ``solve`` (``engine``), its dense GS wrappers
+(``rgs``) and the distributed engine on ``torch.distributed``
+(``distributed``)."""
 
 from repro_torch.core import distributed, engine
 from repro_torch.core.distributed import solve_distributed
@@ -12,8 +13,9 @@ from repro_torch.core.engine import (ParallelSolveResult, Schedule,
 from repro_torch.core.kaczmarz import LSQProblem, random_sparse_lsq, row_norms_sq
 from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp, EllOp,
                                         as_operator)
+from repro_torch.core.rgs import block_gs_solve, rgs_solve
 from repro_torch.core.spd import (SPDProblem, a_norm_sq, block_banded_spd,
-                                  ell_from_dense, laplacian_spd,
+                                  dense_spd, ell_from_dense, laplacian_spd,
                                   random_sparse_spd, to_unit_diagonal)
 
 __all__ = [
@@ -29,6 +31,8 @@ __all__ = [
     "a_norm_sq",
     "as_operator",
     "block_banded_spd",
+    "block_gs_solve",
+    "dense_spd",
     "distributed",
     "draw_picks",
     "ell_from_dense",
@@ -37,6 +41,7 @@ __all__ = [
     "random_sparse_lsq",
     "random_sparse_spd",
     "record_metrics",
+    "rgs_solve",
     "row_norms_sq",
     "sample_rows",
     "scheduled_tau",

@@ -12,10 +12,13 @@ Two actions over one pick stream:
 Each record chunk is one sweep call on the operator (``op.gs_sweep`` /
 ``op.rk_sweep``): on a CSR, ELL or block-banded operator on the card that
 is one launch of its sweep kernel, on the CPU its plain version; a dense
-operator has no kernel and steps through its picks in plain PyTorch.  On
-the block-banded format a GS pick is a whole block row (``op.nb``
-directions); it has no sequential Kaczmarz action (the banded Kaczmarz
-runs in the distributed engine).
+operator has no coordinate-sweep kernel and steps through its picks in
+plain PyTorch.  On the block-banded format a GS pick is a whole block row
+(``op.nb`` directions); it has no sequential Kaczmarz action (the banded
+Kaczmarz runs in the distributed engine).  Dense block GS (``gs_block`` >
+1, the paper's Alg. 1 at the TPU's block granularity, ``DESIGN.md`` §2)
+picks aligned panels of ``gs_block`` rows (``n // gs_block`` directions)
+and runs each chunk as one ``op.block_gs_sweep`` launch.
 
 Picks are drawn with a ``torch.Generator``: a different stream from the
 reference's ``jax.random`` threefry key.  ``picks=`` overrides the drawn
@@ -27,7 +30,7 @@ engine on a ``torch.distributed`` process group (``solve(..., group=)``).
 Not ported yet: the bounded-delay simulator (ROADMAP queue 1 item 6), the
 serving unit (item 4), the distributed strategies other than Kaczmarz
 under the delta all-reduce (item 8) and block GS with ``gs_block > 1`` on
-the dense and CSR formats.
+the CSR format (queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.operators import BlockBandedOp, as_operator
+from repro_torch.core.operators import BlockBandedOp, DenseOp, as_operator
+from repro_torch.tune import runtime as tune_runtime
 
 
 class SolveResult(NamedTuple):
@@ -198,31 +202,45 @@ def sample_rows(rn: torch.Tensor, num: int, *,
                 generator: torch.Generator) -> torch.Tensor:
     """``num`` i.i.d. row indices with P(i) ∝ rn_i (zero rows never picked).
 
-    All-zero ``rn`` samples uniformly instead (``multinomial`` raises on a
-    zero distribution), as the reference defines it.
+    Inverse-CDF sampling: uniform draws of ``generator`` scaled to the total
+    weight, located in the cumulative weights by ``searchsorted``.  The
+    cumulative weights are summed on the host in f64, in row order, so the
+    stream is the same from run to run on the card too (``torch.multinomial``
+    sums its CDF with ``torch.cumsum``, whose CUDA kernel adds in no fixed
+    order).  All-zero ``rn`` samples uniformly instead, as the reference
+    defines it.
     """
     if not bool((rn > 0).any()):
         return torch.randint(0, rn.shape[0], (num,), generator=generator,
                              device=rn.device)
-    return torch.multinomial(rn, num, replacement=True, generator=generator)
+    cdf = rn.detach().to("cpu", torch.float64).cumsum(0).to(rn.device)
+    u = torch.rand(num, generator=generator, dtype=torch.float64,
+                   device=rn.device) * cdf[-1]
+    # below the total, so a draw never lands past the last positive row
+    u = torch.minimum(u, torch.nextafter(cdf[-1], cdf.new_zeros(())))
+    return torch.searchsorted(cdf, u, right=True)
 
 
-def num_directions(op, action: str) -> int:
+def num_directions(op, action: str, block: int = 1) -> int:
     """How many directions a pick chooses from: block rows for GS on the
-    block-banded format, rows otherwise."""
+    block-banded format, aligned panels of ``block`` rows for block GS
+    (``block > 1``), rows otherwise."""
     if action == "gs" and isinstance(op, BlockBandedOp):
         return op.nb
+    if action == "gs" and block > 1:
+        return op.shape[0] // block
     return op.shape[0]
 
 
 def draw_picks(op, action: str, num_iters: int, *,
-               generator: torch.Generator) -> torch.Tensor:
+               generator: torch.Generator, block: int = 1) -> torch.Tensor:
     """The sequential engine's direction stream: GS directions (coordinates,
-    or block rows of a block-banded operator) uniform, RK rows ∝
-    ||A_i||^2."""
+    block rows of a block-banded operator, or aligned panels of ``block``
+    rows) uniform, RK rows ∝ ||A_i||^2."""
     if action == "gs":
-        return torch.randint(0, num_directions(op, action), (num_iters,),
-                             generator=generator, device=op.device)
+        return torch.randint(0, num_directions(op, action, block),
+                             (num_iters,), generator=generator,
+                             device=op.device)
     if action == "rk":
         return sample_rows(op.row_norms_sq(), num_iters, generator=generator)
     raise ValueError(f"unknown action: {action!r}")
@@ -239,16 +257,29 @@ def solve_sequential(
     generator: torch.Generator | None = None,
     picks: torch.Tensor | None = None,
     beta: float = 1.0,
+    block: int = 1,
     record_every: int = 0,
 ) -> SolveResult:
     """Sequential randomized solve: one local-update step per iteration.
 
-    The direction stream is ``picks`` when given (``num_iters`` row ids),
-    else drawn from ``generator``.  Each record chunk is one
-    ``op.gs_sweep`` / ``op.rk_sweep`` call.  ``x0`` is not modified.
+    The direction stream is ``picks`` when given (``num_iters`` direction
+    ids), else drawn from ``generator``.  Each record chunk is one
+    ``op.gs_sweep`` / ``op.rk_sweep`` call, or with ``block > 1`` (dense
+    block GS) one ``op.block_gs_sweep`` call.  ``x0`` is not modified.
     """
     if action not in ("gs", "rk"):
         raise ValueError(f"unknown action: {action!r}")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    if block > 1 and action != "gs":
+        raise ValueError(
+            f"block={block} is a Gauss-Seidel granularity; the Kaczmarz "
+            "action steps row by row (block=1)")
+    if block > 1 and not isinstance(op, DenseOp):
+        raise NotImplementedError(
+            f"block GS with block={block} runs on the dense format only "
+            f"(got {type(op).__name__}); CSR row panels are not ported yet "
+            "(ROADMAP queue 1 item 3)")
     if action == "rk" and isinstance(op, BlockBandedOp):
         raise NotImplementedError(
             "sequential RK needs per-row access (dense, ELL or CSR); the "
@@ -258,14 +289,15 @@ def solve_sequential(
     if picks is None:
         if generator is None:
             raise ValueError("solve_sequential needs a generator or picks")
-        picks = draw_picks(op, action, num_iters, generator=generator)
+        picks = draw_picks(op, action, num_iters, generator=generator,
+                           block=block)
     else:
         picks = torch.as_tensor(picks, device=op.device)
         if picks.shape != (num_iters,):
             raise ValueError(f"picks has shape {tuple(picks.shape)}, "
                              f"expected ({num_iters},)")
         lo, hi = (int(v) for v in torch.aminmax(picks))
-        top = num_directions(op, action)
+        top = num_directions(op, action, block)
         if lo < 0 or hi >= top:
             raise IndexError(f"pick ids span [{lo}, {hi}], allowed "
                              f"[0, {top})")
@@ -275,7 +307,9 @@ def solve_sequential(
     errs, resids = [], []
     for c in range(num_iters // rec):
         ps = picks[c * rec:(c + 1) * rec]
-        if action == "gs":
+        if block > 1:
+            x = op.block_gs_sweep(b, x, ps, block=block, beta=beta)
+        elif action == "gs":
             x = op.gs_sweep(b, x, ps, beta=beta)
         else:
             x = op.rk_sweep(b, rn, x, ps, beta=beta)
@@ -301,6 +335,7 @@ def solve(
     width: int | None = None,
     rows_per_panel: int | None = None,
     storage_dtype=None,
+    gs_block: int = 1,
     x0: torch.Tensor | None = None,
     group=None,
     sync: str = "auto",
@@ -314,9 +349,12 @@ def solve(
     ("dense", "banded", "ell" or "csr"); ``block``/``bands`` shape the
     banded format, ``width`` the ELL format (``None``: every row's nonzeros
     fit; a smaller width keeps each row's largest), ``rows_per_panel``
-    the CSR panel layout (``None``: 8), ``storage_dtype`` the coefficient
-    precision (``None`` keeps the input dtype; the iterate, ``b`` and all
-    accumulation stay f32).
+    the CSR panel layout (``None``: the tuning table's winner at this
+    shape, else 8; the panel grouping never changes a row's summation
+    order), ``storage_dtype`` the coefficient precision (``None`` keeps
+    the input dtype; the iterate, ``b`` and all accumulation stay f32),
+    and ``gs_block`` the block-GS granularity on the dense format (1:
+    coordinate GS).
 
     A sequential ``schedule`` draws its direction stream from
     ``generator`` (``seed`` raises) or takes ``picks``.  A distributed one (``rounds``,
@@ -330,8 +368,16 @@ def solve(
     if action is None:
         action = "rk" if hasattr(problem, "sigma_min") else "gs"
     schedule.validate()
+    if gs_block != 1 and schedule.distributed:
+        raise NotImplementedError(
+            f"gs_block={gs_block}: the distributed engine runs Kaczmarz "
+            "only; distributed block GS is not ported yet (ROADMAP queue 1 "
+            "item 8)")
+    if rows_per_panel is None:
+        rows_per_panel = tune_runtime.tuned_rows_per_panel(
+            problem.A.shape[0], storage_dtype) or 8
     op = as_operator(problem.A, format, block=block, bands=bands, width=width,
-                     rows_per_panel=rows_per_panel or 8,
+                     rows_per_panel=rows_per_panel,
                      storage_dtype=storage_dtype)
     if x0 is None:
         # From b and the operator, not from x_star (which may be None): the
@@ -358,4 +404,4 @@ def solve(
     return solve_sequential(
         op, problem.b, x0, problem.x_star, action=action,
         num_iters=schedule.num_iters, generator=generator, picks=picks,
-        beta=beta, record_every=schedule.record_every)
+        beta=beta, block=gs_block, record_every=schedule.record_every)

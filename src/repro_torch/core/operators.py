@@ -10,7 +10,9 @@ what the engine's actions need:
 * ``gs_sweep`` / ``rk_sweep`` — a whole run of picks, one coordinate-GS or
                          Kaczmarz step each (sparse formats: one kernel
                          launch); the block-banded format steps whole
-                         block rows and has no sequential Kaczmarz sweep.
+                         block rows and has no sequential Kaczmarz sweep;
+* ``block_gs_sweep``   — (dense) a whole run of aligned block-row GS
+                         steps, one kernel launch.
 
 The distributed engine's operator methods (``row_panel``,
 ``residual_panel``, ``slab_neighbors``, ``shard_spec``) are not ported yet
@@ -24,6 +26,8 @@ import torch
 from repro_torch.core.spd import ell_from_dense
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bbmv import dense_to_bands, pack_bands_local
+from repro_torch.tune import runtime as tune_runtime
+from repro_torch.tune.table import MATVEC_VARIANTS
 
 __all__ = ["BlockBandedOp", "CsrOp", "DenseOp", "EllOp", "as_operator",
            "canonical_storage_dtype"]
@@ -59,8 +63,9 @@ def _index_dtype(values_dtype, n: int):
 
 
 class DenseOp:
-    """Dense row-major operator — square SPD or rectangular (m, n).  Plain
-    ``torch.matmul``; there is no kernel to port for it."""
+    """Dense row-major operator — square SPD or rectangular (m, n).  Its
+    matvec is plain ``torch.matmul`` (the reference leaves it to XLA too);
+    its block-GS sweep is the ``block_gs_sweep`` kernel."""
 
     def __init__(self, A: torch.Tensor):
         self.A = A
@@ -101,6 +106,16 @@ class DenseOp:
             g = (b[r] - self.A[r].to(x.dtype) @ x) / rn[r]
             x += beta * self.A[r].float()[:, None] * g[None, :]
         return x
+
+    def block_gs_sweep(self, b, x, blocks, *, block: int,
+                       beta: float = 1.0) -> torch.Tensor:
+        """Sequential randomized block-GS steps, one per block id ``bi``:
+        ``x[B] += beta * (b[B] - A[B, :] @ x)`` on the rows
+        ``B = [bi * block, (bi + 1) * block)``; one launch of the block-GS
+        kernel on the card, its plain version on the CPU.  Returns a new
+        x."""
+        return ops.block_gs_sweep(self.A, b, x, blocks, block=block,
+                                  beta=beta)
 
     def to_dense(self) -> torch.Tensor:
         return self.A
@@ -277,9 +292,10 @@ class CsrOp:
       ``[row_start[r], row_start[r] + row_nnz[r])``, never straddling a
       panel.  ``row_cap`` slack slots follow the last panel.
 
-    The kernels read two derived views, memoized on first use:
-    ``padded_rows()`` (the sweeps) and ``sliced_rows()`` (the matvec).
-    All of these arrays equal the reference operator's exactly.
+    The kernels read the flat arrays (the segment-sum matvec) and two
+    derived views, memoized on first use: ``padded_rows()`` (the sweeps)
+    and ``sliced_rows()`` (the sliced matvec).  All of these arrays equal
+    the reference operator's exactly.
     """
 
     def __init__(self, data, indices, row_id, row_start, row_nnz, *,
@@ -425,22 +441,57 @@ class CsrOp:
                 per_panel.astype(np.int32)).to(self.device)
         return self._panel_nnz
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """``A @ x`` through the sliced-ELL matvec kernels: the predicated
-        kernel iff the stored pattern has an empty panel, the plain sliced
-        kernel otherwise (the reference's choice when it has no
-        tuning-table entry).
+    def matvec(self, x: torch.Tensor, *, variant: str | None = None,
+               skip_empty: bool | None = None) -> torch.Tensor:
+        """``A @ x`` — the tunable CSR matvec seam.
 
-        The legacy segment-sum pair is not ported (ROADMAP queue 2 items
-        11-12).
+        Four kernels compute it (``tune.table.MATVEC_VARIANTS``): the
+        sliced-ELL kernel (``"sliced"``), its empty-panel-predicated twin
+        (``"sliced_prefetch"``), and the segment sum over the flat layout
+        (``"segsum"``) with its predicated twin (``"segsum_prefetch"``).
+        Selection order, the reference's:
+
+        1. an explicit ``variant`` runs that kernel;
+        2. an explicit ``skip_empty`` runs the sliced kernel, predicated
+           iff True;
+        3. the active tuning table's ``matvec`` entry for this operator's
+           shape bucket and storage dtype, when there is one;
+        4. the predicated sliced kernel iff the stored pattern has an empty
+           panel, the plain sliced kernel otherwise.
         """
-        pn = self.panel_nnz()               # memoizes _has_empty_panel too
+        if variant is None:
+            if skip_empty is not None:
+                variant = "sliced_prefetch" if skip_empty else "sliced"
+            else:
+                variant = tune_runtime.matvec_variant(self)
+                if variant is None:
+                    self.panel_nnz()        # memoizes _has_empty_panel
+                    variant = ("sliced_prefetch" if self._has_empty_panel
+                               else "sliced")
+        if variant in ("segsum", "segsum_prefetch"):
+            return self.matvec_segsum(x,
+                                      skip_empty=variant == "segsum_prefetch")
+        if variant not in ("sliced", "sliced_prefetch"):
+            raise ValueError(f"unknown matvec variant: {variant!r} "
+                             f"(expected one of {MATVEC_VARIANTS})")
         vals, cols = self.sliced_rows()
         m, R = self._shape[0], self.rows_per_panel
-        if self._has_empty_panel:
-            return ops.spmv_csr_sliced_prefetch(vals, cols, pn, x, m=m,
-                                                rows_per_panel=R)
+        if variant == "sliced_prefetch":
+            return ops.spmv_csr_sliced_prefetch(vals, cols, self.panel_nnz(),
+                                                x, m=m, rows_per_panel=R)
         return ops.spmv_csr_sliced(vals, cols, x, m=m, rows_per_panel=R)
+
+    def matvec_segsum(self, x: torch.Tensor, *,
+                      skip_empty: bool = False) -> torch.Tensor:
+        """``A @ x`` by the segment-sum kernels over the stored flat arrays
+        ``data``/``indices``/``row_id`` (the reference's legacy contrast
+        case); ``skip_empty`` runs the predicated twin."""
+        kw = dict(m=self._shape[0], rows_per_panel=self.rows_per_panel,
+                  panel_width=self.panel_width)
+        if skip_empty:
+            return ops.spmv_csr_prefetch(self.data, self.indices, self.row_id,
+                                         self.panel_nnz(), x, **kw)
+        return ops.spmv_csr(self.data, self.indices, self.row_id, x, **kw)
 
     def matvec_ref(self, x: torch.Tensor) -> torch.Tensor:
         """``A @ x`` by a segment sum over the flat layout (the reference's

@@ -54,8 +54,13 @@ def resolve_device(device) -> torch.device:
 
 
 def to_unit_diagonal(B: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Return ``(A, d)`` with ``A = D B D`` unit-diagonal, ``D = diag(d)``."""
-    d = 1.0 / torch.sqrt(torch.diagonal(B))
+    """Return ``(A, d)`` with ``A = D B D`` unit-diagonal, ``D = diag(d)``.
+
+    The square root is taken in f64 and rounded once: the correctly rounded
+    root on every device, as the reference's is (PyTorch's vectorized f32
+    square root on the CPU is not), so ``A`` is bitwise the reference's.
+    """
+    d = 1.0 / torch.sqrt(torch.diagonal(B).double()).to(B.dtype)
     A = B * d[:, None] * d[None, :]
     # Exact ones on the diagonal (kills rounding fuzz that breaks (d,d)_A = 1).
     A.fill_diagonal_(1.0)
@@ -123,6 +128,19 @@ def laplacian_spd(side: int, *, shift: float = 1e-2, n_rhs: int = 1,
                 q_i, q_j = i + di, j + dj
                 if 0 <= q_i < side and 0 <= q_j < side:
                     A[p, q_i * side + q_j] = -1.0
+    return _finish(A, n_rhs, seed, device)
+
+
+def dense_spd(n: int, *, n_rhs: int = 1, seed: int = 0,
+              device=None) -> SPDProblem:
+    """Dense Wishart-plus-identity SPD ``G G^T / n + I``, scaled to a unit
+    diagonal (outside the paper's sparse scenario; the dense block-GS
+    path's problem).  The host construction is the reference's, line for
+    line."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((n, n))
+    A = G @ G.T / n + np.eye(n)
     return _finish(A, n_rhs, seed, device)
 
 

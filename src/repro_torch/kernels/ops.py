@@ -12,27 +12,30 @@ build or launch raises.
 
 ``launch_counts()`` reports how often each kernel was launched since the
 last ``reset_launch_counts()``; only the launchers (``sweep_csr.py``,
-``spmv_csr.py``, ``spmv_ell.py``, ``bbmv.py``, ``banded_gs.py``) increment
-them, where they launch.  The counters are per process: a distributed run
+``spmv_csr.py``, ``spmv_ell.py``, ``bbmv.py``, ``banded_gs.py``,
+``block_gs.py``) increment them, where they launch.  The counters are per process: a distributed run
 counts each rank's launches in that rank's process.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (_build, banded_gs, ref, ref_banded, spmv_csr,
+from repro_torch.kernels import (_build, banded_gs, block_gs, ref, ref_banded,
                                  sweep_csr)
+from repro_torch.kernels import spmv_csr as _spmv_csr
 from repro_torch.kernels import bbmv as _bbmv
 from repro_torch.kernels import spmv_ell as _spmv_ell
 
 KERNELS = ("sweep_rows_gs", "sweep_rows_rk", "spmv_csr_sliced",
            "spmv_csr_sliced_prefetch", "spmv_ell", "bbmv", "banded_gs_sweep",
-           "sweep_rows_rk_delta", "banded_rk_sweep")
-_COUNTERS = (sweep_csr.LAUNCHES, spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
-             _bbmv.LAUNCHES, banded_gs.LAUNCHES)
+           "sweep_rows_rk_delta", "banded_rk_sweep", "block_gs_sweep",
+           "spmv_csr", "spmv_csr_prefetch")
+_COUNTERS = (sweep_csr.LAUNCHES, _spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
+             _bbmv.LAUNCHES, banded_gs.LAUNCHES, block_gs.LAUNCHES)
 
-# Largest band-tile block the CUDA kernels take (csrc/banded.cuh: one CTA's
-# staged tile rows must fit its shared memory).
+# Largest block the band-tile and dense block-GS CUDA kernels take
+# (csrc/banded.cuh, csrc/block_gs.cu: one CTA's staged rows must fit the
+# shared memory a launch gets without opting in).
 MAX_BLOCK = 256
 
 
@@ -183,7 +186,7 @@ def spmv_csr_sliced(vals, cols, x, *, m, rows_per_panel):
     cuda = _on_cuda(name, vals, cols, x)
     _check_spmv(name, vals, cols, x, m, rows_per_panel)
     if cuda:
-        return spmv_csr.spmv_csr_sliced(vals, cols, x, m=m)
+        return _spmv_csr.spmv_csr_sliced(vals, cols, x, m=m)
     return ref.spmv_csr_sliced_ref(vals, cols, x, m=m)
 
 
@@ -197,10 +200,67 @@ def spmv_csr_sliced_prefetch(vals, cols, panel_nnz, x, *, m, rows_per_panel):
         raise ValueError(f"{name}: panel_nnz must be int32 of shape "
                          f"({num_panels},)")
     if cuda:
-        return spmv_csr.spmv_csr_sliced_prefetch(
+        return _spmv_csr.spmv_csr_sliced_prefetch(
             vals, cols, panel_nnz, x, m=m, rows_per_panel=rows_per_panel)
     return ref.spmv_csr_sliced_prefetch_ref(vals, cols, panel_nnz, x, m=m,
                                             rows_per_panel=rows_per_panel)
+
+
+def _check_segsum(name, data, indices, row_id, x, m, rows_per_panel,
+                  panel_width):
+    if data.ndim != 1 or data.shape != indices.shape \
+            or data.shape != row_id.shape:
+        raise ValueError(f"{name}: data {tuple(data.shape)}, indices "
+                         f"{tuple(indices.shape)} and row_id "
+                         f"{tuple(row_id.shape)} must be equal 1-D shapes")
+    if (data.dtype, indices.dtype) not in _build.SUFFIX:
+        raise TypeError(f"{name}: no kernel for values {data.dtype} with "
+                        f"indices {indices.dtype}")
+    if row_id.dtype != torch.int32:
+        raise TypeError(f"{name}: row_id must be int32, got {row_id.dtype}")
+    _check_f32(name, x=x)
+    if rows_per_panel < 1 or panel_width < 0 or x.ndim != 2:
+        raise ValueError(f"{name}: rows_per_panel {rows_per_panel} / "
+                         f"panel_width {panel_width} / x {tuple(x.shape)}")
+    num_panels = -(-m // rows_per_panel)
+    if data.shape[0] < num_panels * panel_width:
+        raise ValueError(f"{name}: {data.shape[0]} slots, expected at least "
+                         f"{num_panels} panels of {panel_width}")
+    return num_panels
+
+
+def spmv_csr(data, indices, row_id, x, *, m, rows_per_panel, panel_width):
+    """``y = A @ x`` (m, k) f32 by a segment sum over the flat
+    panel-aligned CSR layout (``CsrOp.data``/``indices``/``row_id``): panel
+    ``p`` owns slots ``[p * panel_width, (p + 1) * panel_width)``, and each
+    output row adds its slots in slot order.  x: (n, k) f32."""
+    name = "spmv_csr"
+    cuda = _on_cuda(name, data, indices, row_id, x)
+    _check_segsum(name, data, indices, row_id, x, m, rows_per_panel,
+                  panel_width)
+    kw = dict(m=m, rows_per_panel=rows_per_panel, panel_width=panel_width)
+    if cuda:
+        return _spmv_csr.spmv_csr(data, indices, row_id, x, **kw)
+    return ref.spmv_csr_segsum_ref(data, indices, row_id, x, **kw)
+
+
+def spmv_csr_prefetch(data, indices, row_id, panel_nnz, x, *, m,
+                      rows_per_panel, panel_width):
+    """``spmv_csr`` with the rows of empty panels (``panel_nnz == 0``)
+    written as zeros without reading their slots; bitwise equal to it."""
+    name = "spmv_csr_prefetch"
+    cuda = _on_cuda(name, data, indices, row_id, panel_nnz, x)
+    num_panels = _check_segsum(name, data, indices, row_id, x, m,
+                               rows_per_panel, panel_width)
+    if panel_nnz.shape != (num_panels,) or panel_nnz.dtype != torch.int32:
+        raise ValueError(f"{name}: panel_nnz must be int32 of shape "
+                         f"({num_panels},)")
+    kw = dict(m=m, rows_per_panel=rows_per_panel, panel_width=panel_width)
+    if cuda:
+        return _spmv_csr.spmv_csr_prefetch(data, indices, row_id, panel_nnz, x,
+                                          **kw)
+    return ref.spmv_csr_segsum_prefetch_ref(data, indices, row_id, panel_nnz,
+                                            x, **kw)
 
 
 def spmv_ell(vals, cols, x, *, n_cols: int | None = None):
@@ -317,3 +377,33 @@ def banded_rk_sweep(A_bands, b, rn, xw, dw, picks, gates, *, block: int,
                                          limit=nb)
     return ref_banded.banded_rk_sweep_ref(A_bands, b, rn, xw, dw, picks, gates,
                                           block=block, bands=bands, beta=beta)
+
+
+def block_gs_sweep(A, b, x, blocks, *, block: int, beta: float = 1.0):
+    """Dense randomized block-GS sweep; returns a new x.
+
+    A: (n, n) f32 or bf16; b, x: (n, k) f32; blocks: (steps,) block ids in
+    [0, n // block).  Step ``bi`` updates rows
+    ``[bi * block, (bi + 1) * block)``:
+    ``x[B] += beta * (b[B] - A[B, :] @ x)``.
+    """
+    name = "block_gs_sweep"
+    cuda = _on_cuda(name, A, b, x)
+    if A.dtype not in _build.VALUE_SUFFIX:
+        raise TypeError(f"{name}: no kernel for A of {A.dtype}")
+    _check_f32(name, b=b, x=x)
+    n = A.shape[0]
+    if A.ndim != 2 or A.shape != (n, n) or x.ndim != 2 \
+            or x.shape[0] != n or b.shape != x.shape:
+        raise ValueError(f"{name}: A {tuple(A.shape)} / b {tuple(b.shape)} / "
+                         f"x {tuple(x.shape)} is not (n, n) / (n, k) / (n, k)")
+    if not 1 <= block <= n:
+        raise ValueError(f"{name}: block {block} must lie in [1, {n}]")
+    if cuda and block > MAX_BLOCK:
+        raise ValueError(f"{name}: the CUDA kernel takes block <= "
+                         f"{MAX_BLOCK}, got {block}")
+    blocks = _picks(name, blocks, n // block, x)
+    if cuda:
+        return block_gs.block_gs_sweep(A, b, x, blocks, block=block,
+                                       beta=beta, limit=n // block)
+    return ref.block_gs_sweep_ref(A, b, x, blocks, block=block, beta=beta)

@@ -26,6 +26,28 @@ def spmv_csr_ref(data, indices, row_id, x, *, m: int):
     return y.index_add_(0, row_id.long(), contrib).to(x.dtype)
 
 
+def spmv_csr_segsum_ref(data, indices, row_id, x, *, m: int,
+                        rows_per_panel: int, panel_width: int):
+    """``y = A @ x`` by a segment sum over the panels' slots of the flat
+    layout (the first ``num_panels * panel_width`` slots; the row-window
+    slack after the last panel is not read), as the legacy kernels read
+    it."""
+    body = -(-m // rows_per_panel) * panel_width
+    return spmv_csr_ref(data[:body], indices[:body], row_id[:body], x, m=m)
+
+
+def spmv_csr_segsum_prefetch_ref(data, indices, row_id, panel_nnz, x, *,
+                                 m: int, rows_per_panel: int,
+                                 panel_width: int):
+    """``spmv_csr_segsum_ref`` with the rows of empty panels written as
+    zeros; bitwise equal to it for finite ``x``."""
+    y = spmv_csr_segsum_ref(data, indices, row_id, x, m=m,
+                            rows_per_panel=rows_per_panel,
+                            panel_width=panel_width)
+    keep = (panel_nnz > 0).repeat_interleave(rows_per_panel)[:m]
+    return torch.where(keep[:, None], y, torch.zeros_like(y))
+
+
 def window_dot(vals, cols, x):
     """Contract row windows ``vals``/``cols`` of shape (..., width) with
     the gathered rows of ``x`` (n, k), slot by slot in slot order: one
@@ -51,6 +73,27 @@ def spmv_csr_sliced_prefetch_ref(vals, cols, panel_nnz, x, *, m: int,
     y = spmv_csr_sliced_ref(vals, cols, x, m=m)
     keep = (panel_nnz > 0).repeat_interleave(rows_per_panel)[:m]
     return torch.where(keep[:, None], y, torch.zeros_like(y))
+
+
+def block_gs_sweep_ref(A, b, x, blocks, *, block: int, beta: float = 1.0):
+    """``len(blocks)`` sequential dense block-GS steps; returns a new x.
+
+    Step ``bi``: ``g = b[B] - A[B, :] @ x`` with ``B`` the rows
+    ``[bi * block, (bi + 1) * block)`` (A widened to f32 first), then
+    ``x[B] += beta * g``.  The panel product is taken one column of x at a
+    time (a contiguous matrix-vector product each), so a column's result
+    does not depend on how many columns ride along.
+    """
+    x = x.clone()
+    if x.shape[1] == 0:
+        return x
+    for bi in blocks.tolist():
+        rows = slice(bi * block, (bi + 1) * block)
+        panel = A[rows].float()
+        prod = torch.stack([panel @ x[:, c].contiguous()
+                            for c in range(x.shape[1])], 1)
+        x[rows] += beta * (b[rows] - prod)
+    return x
 
 
 def spmv_ell_ref(vals, cols, x):
