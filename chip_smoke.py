@@ -189,15 +189,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    # The paths below run the untuned defaults, which a
+    # TUNE_torch_cuda.json at the root of the checkout would steer (matvec
+    # variant, rows_per_panel).  Table lookups are off in this process and
+    # its children; the tuned phase installs its own table.
+    os.environ["REPRO_TORCH_TUNE_TABLE"] = "off"
     try:
         from repro_torch import (Schedule, a_norm_sq, as_operator,
                                  block_banded_spd, laplacian_spd,
                                  random_sparse_lsq, random_sparse_spd, solve)
         from repro_torch.core import ell_from_dense
         from repro_torch.core.distributed import _sync_bytes_per_round
-        from repro_torch.core.engine import (draw_picks, sample_rows,
-                                             scheduled_tau)
-        from repro_torch.core.operators import CsrOp
+        from repro_torch.core.engine import (draw_picks, record_metrics,
+                                             sample_rows, scheduled_tau)
+        from repro_torch.core.operators import CsrOp, DenseOp
         from repro_torch.kernels import (_build, ops, ref, ref_banded,
                                          sweep_csr)
         from repro_torch.launch.mesh import process_group, run_workers
@@ -350,46 +355,54 @@ def main() -> int:
     rk_picks = {sd: sample_rows(ops_by[("lsq", sd)].row_norms_sq(), PREFIX,
                                 generator=gen) for sd in (None, "bfloat16")}
 
-    def spmv_check(tag, op, x, variant):
+    def csr_matvec(op, x, variant):
+        """A CSR matvec variant's kernel name, its wrapper's call and its
+        plain version's call on ``op``'s arrays and ``x``: the sliced pair
+        reads the sliced-ELL windows, the segment-sum pair the flat
+        panel-aligned layout."""
+        m, R, W = op.shape[0], op.rows_per_panel, op.panel_width
         vals, cols = op.sliced_rows()
-        m, R = op.shape[0], op.rows_per_panel
-        if variant == "sliced":
-            y = ops.spmv_csr_sliced(vals, cols, x, m=m, rows_per_panel=R)
-            want = ref.spmv_csr_sliced_ref(vals, cols, x, m=m)
-        else:
-            y = ops.spmv_csr_sliced_prefetch(vals, cols, op.panel_nnz(), x,
-                                             m=m, rows_per_panel=R)
-            want = ref.spmv_csr_sliced_prefetch_ref(
-                vals, cols, op.panel_nnz(), x, m=m, rows_per_panel=R)
-        torch.cuda.synchronize()
-        scale = ref.spmv_csr_sliced_ref(vals.abs(), cols, x.abs(), m=m)
-        err = (y - want).abs()
-        check(bool((err <= SPMV_RTOL * scale + SPMV_ATOL).all()),
-              f"spmv_csr_{variant} {tag}: max|kernel - plain| = "
-              f"{float(err.max()):.3e} within {SPMV_RTOL:g}*(|A||x|) + "
-              f"{SPMV_ATOL:g}")
-        return y, float(err.max())
+        flat = (op.data, op.indices, op.row_id)
+        seg = dict(m=m, rows_per_panel=R, panel_width=W)
+        pn = op.panel_nnz()
+        return {
+            "sliced": (
+                "spmv_csr_sliced",
+                lambda: ops.spmv_csr_sliced(vals, cols, x, m=m,
+                                            rows_per_panel=R),
+                lambda: ref.spmv_csr_sliced_ref(vals, cols, x, m=m)),
+            "sliced_prefetch": (
+                "spmv_csr_sliced_prefetch",
+                lambda: ops.spmv_csr_sliced_prefetch(vals, cols, pn, x, m=m,
+                                                     rows_per_panel=R),
+                lambda: ref.spmv_csr_sliced_prefetch_ref(
+                    vals, cols, pn, x, m=m, rows_per_panel=R)),
+            "segsum": (
+                "spmv_csr",
+                lambda: ops.spmv_csr(*flat, x, **seg),
+                lambda: ref.spmv_csr_segsum_ref(*flat, x, **seg)),
+            "segsum_prefetch": (
+                "spmv_csr_prefetch",
+                lambda: ops.spmv_csr_prefetch(*flat, pn, x, **seg),
+                lambda: ref.spmv_csr_segsum_prefetch_ref(*flat, pn, x,
+                                                         **seg)),
+        }[variant]
 
-    def segsum_check(tag, op, x, variant):
-        """The segment-sum pair over the flat layout against its plain
-        version, within the matvec tolerance."""
-        kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
-                  panel_width=op.panel_width)
-        args = (op.data, op.indices, op.row_id)
-        if variant == "segsum":
-            name = "spmv_csr"
-            y = ops.spmv_csr(*args, x, **kw)
-            want = ref.spmv_csr_segsum_ref(*args, x, **kw)
-        else:
-            name = "spmv_csr_prefetch"
-            y = ops.spmv_csr_prefetch(*args, op.panel_nnz(), x, **kw)
-            want = ref.spmv_csr_segsum_prefetch_ref(*args, op.panel_nnz(), x,
-                                                    **kw)
+    def matvec_scale(op, x):
+        """|A| |x|, the scale of the matvec tolerance."""
+        vals, cols = op.sliced_rows()
+        return ref.spmv_csr_sliced_ref(vals.abs(), cols, x.abs(),
+                                       m=op.shape[0])
+
+    def spmv_check(tag, op, x, variant):
+        """A CSR matvec kernel against its plain version, within the
+        matvec tolerance."""
+        name, run, plain = csr_matvec(op, x, variant)
+        y, want = run(), plain()
         torch.cuda.synchronize()
-        scale = ref.spmv_csr_segsum_ref(op.data.abs(), op.indices, op.row_id,
-                                        x.abs(), **kw)
         err = (y - want).abs()
-        check(bool((err <= SPMV_RTOL * scale + SPMV_ATOL).all()),
+        check(bool((err <= SPMV_RTOL * matvec_scale(op, x)
+                    + SPMV_ATOL).all()),
               f"{name} {tag}: max|kernel - plain| = {float(err.max()):.3e} "
               f"within {SPMV_RTOL:g}*(|A||x|) + {SPMV_ATOL:g}")
         return y, float(err.max())
@@ -435,9 +448,9 @@ def main() -> int:
                 f"{tag} {name}", ops_by[key], x, "sliced")
             _, errs[("spmv_csr_sliced_prefetch", sd, name)] = spmv_check(
                 f"{tag} {name}", ops_by[key], x, "sliced_prefetch")
-            y_seg, errs[("spmv_csr", sd, name)] = segsum_check(
+            y_seg, errs[("spmv_csr", sd, name)] = spmv_check(
                 f"{tag} {name}", ops_by[key], x, "segsum")
-            y_pre, errs[("spmv_csr_prefetch", sd, name)] = segsum_check(
+            y_pre, errs[("spmv_csr_prefetch", sd, name)] = spmv_check(
                 f"{tag} {name}", ops_by[key], x, "segsum_prefetch")
             check(torch.equal(y_seg, y_pre), f"spmv_csr == spmv_csr_prefetch "
                   f"bitwise, {tag} {name}")
@@ -449,9 +462,9 @@ def main() -> int:
     check(torch.equal(y_plain, y_pred),
           "spmv_csr_sliced == spmv_csr_sliced_prefetch bitwise on a pattern "
           f"with {int((holes.panel_nnz() == 0).sum())} empty panels")
-    y_seg, errs[("spmv_csr", None, "holes")] = segsum_check(
+    y_seg, errs[("spmv_csr", None, "holes")] = spmv_check(
         "f32/i32 empty panels", holes, x_lsq, "segsum")
-    y_segp, errs[("spmv_csr_prefetch", None, "holes")] = segsum_check(
+    y_segp, errs[("spmv_csr_prefetch", None, "holes")] = spmv_check(
         "f32/i32 empty panels", holes, x_lsq, "segsum_prefetch")
     check(torch.equal(y_seg, y_segp),
           "spmv_csr == spmv_csr_prefetch bitwise on a pattern with "
@@ -507,8 +520,8 @@ def main() -> int:
     check(e <= SWEEP_RTOL, f"sweep_rows_rk_delta bf16/i32: rel err {e:.3e}")
     spmv_check("bf16/i32", big, xb, "sliced")
     spmv_check("bf16/i32", big, xb, "sliced_prefetch")
-    segsum_check("bf16/i32", big, xb, "segsum")
-    segsum_check("bf16/i32", big, xb, "segsum_prefetch")
+    spmv_check("bf16/i32", big, xb, "segsum")
+    spmv_check("bf16/i32", big, xb, "segsum_prefetch")
 
     def ell_check(tag, vals, cols, x):
         y = ops.spmv_ell(vals, cols, x)
@@ -822,9 +835,7 @@ def main() -> int:
         segp = drive(f"CsrOp.matvec_segsum(skip_empty=True) on {tag}",
                      dict(spmv_csr_prefetch=1),
                      functools.partial(op.matvec_segsum, x, skip_empty=True))
-        vals, cols = op.sliced_rows()
-        scale = ref.spmv_csr_sliced_ref(vals.abs(), cols, x.abs(),
-                                        m=op.shape[0])
+        scale = matvec_scale(op, x)
         check(torch.equal(ys["sliced"], ys["sliced_prefetch"])
               and torch.equal(ys["segsum"], ys["segsum_prefetch"])
               and torch.equal(seg, ys["segsum"])
@@ -1178,48 +1189,46 @@ def main() -> int:
         y = torch.sparse.mm(A, x)
         return (lambda: torch.sparse.mm(A, x)), y
 
-    def spmv_entry(name, op, x, err, source_line):
-        vals, cols = op.sliced_rows()
-        m, R = op.shape[0], op.rows_per_panel
-        pn = op.panel_nnz()
-        if name == "spmv_csr_sliced":
-            run = functools.partial(ops.spmv_csr_sliced, vals, cols, x, m=m,
-                                    rows_per_panel=R)
-            plain = functools.partial(ref.spmv_csr_sliced_ref, vals, cols, x,
-                                      m=m)
-            extra = 0
-        else:
-            run = functools.partial(ops.spmv_csr_sliced_prefetch, vals, cols,
-                                    pn, x, m=m, rows_per_panel=R)
-            plain = functools.partial(ref.spmv_csr_sliced_prefetch_ref, vals,
-                                      cols, pn, x, m=m, rows_per_panel=R)
-            extra = pn.numel() * 4
+    def spmv_entry(variant, op, x, err=None, source_line=None):
+        """Time a CSR matvec kernel on ``op`` beside its bound.  Bytes:
+        each stored nonzero's value and index, and its row id for the
+        segment sum (padding slots carry nothing this run needs), x once,
+        y once, and panel_nnz for the predicated twins; flops: 2 per
+        nonzero per column.  With ``source_line`` it also times the plain
+        version and the library yardstick (torch.sparse.mm on CSR) and
+        returns the kernel's entry of the JSON line."""
+        name, run, plain = csr_matvec(op, x, variant)
         ms = cuda_ms(run, 50)
+        k = x.shape[1]
+        nbytes = (op.nnz * (val_b + idx_b) + op.shape[1] * k * 4
+                  + op.shape[0] * k * 4)
+        if variant.startswith("segsum"):
+            nbytes += op.nnz * 4
+        if variant.endswith("_prefetch"):
+            nbytes += op.panel_nnz().numel() * 4
+        b_ms, by = bound_ms(nbytes, 2.0 * op.nnz * k)
+        head = f"  {name} {op.shape} nnz={op.nnz}: {ms:.4f} ms"
+        if source_line is None:
+            print(f"{head}; bound {b_ms:.5f} ms ({by})", flush=True)
+            return None
         plain_ms = cuda_ms(plain, 5)
         lib, y_lib = library_spmv(op, x)
         check(torch.allclose(y_lib, run(), rtol=1e-4, atol=1e-4),
               f"{name}: torch.sparse.mm agrees with the kernel")
         lib_ms = cuda_ms(lib, 50)
-        k = x.shape[1]
-        nbytes = (op.nnz * (val_b + idx_b) + op.shape[1] * k * 4
-                  + m * k * 4 + extra)
-        b_ms, by = bound_ms(nbytes, 2.0 * op.nnz * k)
-        print(f"  {name} {op.shape} nnz={op.nnz}: {ms:.4f} ms; plain "
-              f"{plain_ms:.4f} ms; torch.sparse.mm {lib_ms:.4f} ms; bound "
-              f"{b_ms:.5f} ms ({by})", flush=True)
+        print(f"{head}; plain {plain_ms:.4f} ms; torch.sparse.mm "
+              f"{lib_ms:.4f} ms; bound {b_ms:.5f} ms ({by})", flush=True)
         return dict(name=name, route="cuda",
                     source="src/repro_torch/csrc/spmv_csr.cu",
                     replaces=source_line, launches=launches[name],
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=by, library_ms=lib_ms)
 
-    lines.append(spmv_entry("spmv_csr_sliced", ops_by[("spd", None)], x_spd,
+    lines.append(spmv_entry("sliced", ops_by[("spd", None)], x_spd,
                             errs[("spmv_csr_sliced", None, "spd")],
                             "src/repro/kernels/spmv_csr.py:271"))
-    spmv_entry("spmv_csr_sliced", ops_by[("lsq", None)], x_lsq,
-               errs[("spmv_csr_sliced", None, "lsq")],
-               "src/repro/kernels/spmv_csr.py:271")
-    lines.append(spmv_entry("spmv_csr_sliced_prefetch", holes, x_lsq,
+    spmv_entry("sliced", ops_by[("lsq", None)], x_lsq)
+    lines.append(spmv_entry("sliced_prefetch", holes, x_lsq,
                             errs["prefetch_holes"],
                             "src/repro/kernels/spmv_csr.py:327"))
 
@@ -1378,6 +1387,13 @@ def main() -> int:
                         nb * (2.0 * BLOCK * SPD_N * K + 3.0 * BLOCK * K))
     panel = A_dense[:BLOCK]
     mm_ms = cuda_ms(lambda: panel @ x_band, 20)
+    # One record of the dense path: record_metrics' two products with the
+    # dense A (torch.matmul, as in the reference) and its column sums.
+    rec_ms = cuda_ms(lambda: record_metrics(
+        DenseOp(A_dense), banded.b, x_band, banded.x_star, norm="A"), 5)
+    print(f"  dense path: one record (two torch.matmul with the dense A) "
+          f"{rec_ms:.4f} ms; {dg.iters.numel()} records per solve",
+          flush=True)
     print(f"  block_gs_sweep, one main-path chunk ({nb} picks, n={SPD_N}, "
           f"block={BLOCK}): {ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick); plain "
           f"{plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); no library call "
@@ -1391,56 +1407,16 @@ def main() -> int:
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                       library_ms=None))
 
-    # The segment-sum pair on both operators.  Bytes: each stored nonzero's
-    # value, index and row id once (the padding slots carry nothing this
-    # run needs), x once, y once (and panel_nnz); flops: 2 per nonzero per
-    # column.  Library yardstick: torch.sparse.mm on CSR, as for the sliced
-    # pair.
-    def segsum_entry(name, op, x, err, source_line):
-        kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
-                  panel_width=op.panel_width)
-        args = (op.data, op.indices, op.row_id)
-        if name == "spmv_csr":
-            run = functools.partial(ops.spmv_csr, *args, x, **kw)
-            plain = functools.partial(ref.spmv_csr_segsum_ref, *args, x, **kw)
-            extra = 0
-        else:
-            pn = op.panel_nnz()
-            run = functools.partial(ops.spmv_csr_prefetch, *args, pn, x, **kw)
-            plain = functools.partial(ref.spmv_csr_segsum_prefetch_ref, *args,
-                                      pn, x, **kw)
-            extra = pn.numel() * 4
-        ms = cuda_ms(run, 50)
-        plain_ms = cuda_ms(plain, 5)
-        lib, y_lib = library_spmv(op, x)
-        check(torch.allclose(y_lib, run(), rtol=1e-4, atol=1e-4),
-              f"{name}: torch.sparse.mm agrees with the kernel")
-        lib_ms = cuda_ms(lib, 50)
-        k = x.shape[1]
-        nbytes = (op.nnz * (val_b + idx_b + 4) + op.shape[1] * k * 4
-                  + op.shape[0] * k * 4 + extra)
-        b_ms, by = bound_ms(nbytes, 2.0 * op.nnz * k)
-        print(f"  {name} {op.shape} nnz={op.nnz} panel_width="
-              f"{op.panel_width}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
-              f"torch.sparse.mm {lib_ms:.4f} ms; bound {b_ms:.5f} ms ({by})",
-              flush=True)
-        return dict(name=name, route="cuda",
-                    source="src/repro_torch/csrc/spmv_csr.cu",
-                    replaces=source_line, launches=launches[name],
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, library_ms=lib_ms)
-
-    lines.append(segsum_entry("spmv_csr", ops_by[("spd", None)], x_spd,
-                              errs[("spmv_csr", None, "spd")],
-                              "src/repro/kernels/spmv_csr.py:121"))
-    segsum_entry("spmv_csr", holes, x_lsq, errs[("spmv_csr", None, "holes")],
-                 "src/repro/kernels/spmv_csr.py:121")
-    lines.append(segsum_entry("spmv_csr_prefetch", holes, x_lsq,
-                              errs[("spmv_csr_prefetch", None, "holes")],
-                              "src/repro/kernels/spmv_csr.py:187"))
-    segsum_entry("spmv_csr_prefetch", ops_by[("spd", None)], x_spd,
-                 errs[("spmv_csr_prefetch", None, "spd")],
-                 "src/repro/kernels/spmv_csr.py:187")
+    # The segment-sum pair on both operators; the JSON line takes each
+    # kernel on the operator of its main-path run.
+    lines.append(spmv_entry("segsum", ops_by[("spd", None)], x_spd,
+                            errs[("spmv_csr", None, "spd")],
+                            "src/repro/kernels/spmv_csr.py:121"))
+    spmv_entry("segsum", holes, x_lsq)
+    lines.append(spmv_entry("segsum_prefetch", holes, x_lsq,
+                            errs[("spmv_csr_prefetch", None, "holes")],
+                            "src/repro/kernels/spmv_csr.py:187"))
+    spmv_entry("segsum_prefetch", ops_by[("spd", None)], x_spd)
 
     left = live_children()
     check(not left, "no process this run started is still running "
