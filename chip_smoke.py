@@ -19,7 +19,11 @@ distributed Kaczmarz engine (``solve`` with
 ``Schedule(rounds=, local_steps=)`` and a process group; one local-phase
 launch per round) at P = 1 in this process on the LSQ problem (CSR) and
 the banded problem, and at P = 4 in four spawned processes that share the
-card through a gloo group.  It checks what comes out, shows from the
+card through a gloo group.  It holds the GS sweep's two paths (the
+iterate in shared memory, or in global memory when it is too tall) against
+the plain version and against each other, and the block-banded matvec at
+ragged shapes and at both column-tile widths.  It checks what comes out,
+shows from the
 launch counters (set to 0 just before each path and read just after) that
 each path ran its kernels and nothing else, and times each kernel beside
 its plain version, its roofline bound and, where one exists, a PyTorch
@@ -66,6 +70,13 @@ SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # |y_k - y_p| <= rtol * (|A| |x|) + atol
 # separately rounded products and sums (plain version) drift apart like a
 # random walk of ~sqrt(640) * 2^-24 ~ 1.5e-6 relative to |A| |x|.
 BBMV_RTOL, BBMV_ATOL = 2e-5, 1e-6
+# The GS sweep's global-memory path: synthetic row windows over an iterate
+# too tall for shared memory (kernels/sweep_csr.py::gs_columns_per_block).
+GS_GLOBAL_N, GS_GLOBAL_WIDTH, GS_GLOBAL_K = 131072, 51, 4
+# bbmv at ragged shapes: block 20 is not a multiple of the kernel's 64-row
+# warp tile (its tile rows are still 16-byte aligned); block 18 rows are
+# not, so its tiles and x are staged element by element.
+RAGGED_NB, RAGGED_BLOCKS, RAGGED_KS = 9, (20, 18), (1, 3, 51)
 MONO_RTOL = 1e-6            # err_sq non-increasing up to this rounding
 RESID_RTOL = 1e-4           # kernel residual vs dense torch.matmul residual
 # The distributed Kaczmarz engine.  P = 1 in this process: sparse_rk on the
@@ -205,6 +216,7 @@ def main() -> int:
         from repro_torch.core.operators import CsrOp, DenseOp
         from repro_torch.kernels import (_build, ops, ref, ref_banded,
                                          sweep_csr)
+        from repro_torch.kernels import bbmv as _bbmv
         from repro_torch.launch.mesh import process_group, run_workers
         from repro_torch.tune import TuningTable, runtime, use_table
         from repro_torch.tune.table import MATVEC_VARIANTS
@@ -537,6 +549,58 @@ def main() -> int:
     bv, bc = big.padded_rows()
     ell_check("bf16/i32 n=40000", bv, bc, xb)
 
+    # The GS sweep's two paths.  At n = SPD_N the iterate fits shared
+    # memory, so the checks above ran the shared-memory path; the global
+    # path runs on synthetic windows over an iterate too tall for it, and
+    # the two are held bitwise equal on a main-path chunk (the launcher
+    # takes the global path when asked, at any n).  Draws from a generator
+    # of their own leave the other checks' inputs as they were.
+    gen_gs = torch.Generator(dev).manual_seed(SEED + 15)
+    capacity = sweep_csr.shared_capacity(dev)
+    ct_main = sweep_csr.gs_columns_per_block(SPD_N, K, capacity)
+    check(ct_main > 0, f"sweep_rows_gs n={SPD_N} k={K} takes the shared-memory "
+          f"path: {ct_main} column(s) a CTA of the {capacity} bytes a CTA "
+          "may opt into")
+    check(sweep_csr.gs_columns_per_block(GS_GLOBAL_N, GS_GLOBAL_K,
+                                         capacity) == 0,
+          f"sweep_rows_gs n={GS_GLOBAL_N} takes the global path")
+    rows_g = torch.arange(GS_GLOBAL_N, device=dev)
+    cols_g = torch.randint(0, GS_GLOBAL_N, (GS_GLOBAL_N, GS_GLOBAL_WIDTH),
+                           generator=gen_gs, device=dev, dtype=torch.int32)
+    cols_g[:, 0] = rows_g.to(torch.int32)          # the diagonal first
+    vals_g = torch.randn((GS_GLOBAL_N, GS_GLOBAL_WIDTH), generator=gen_gs,
+                         device=dev) * 0.05
+    vals_g[:, 0] = 1.0
+    b_g = torch.randn((GS_GLOBAL_N, GS_GLOBAL_K), generator=gen_gs, device=dev)
+    x_g = torch.randn((GS_GLOBAL_N, GS_GLOBAL_K), generator=gen_gs, device=dev)
+    picks_g = torch.randint(0, GS_GLOBAL_N, (PREFIX,), generator=gen_gs,
+                            device=dev)
+    for vdt in (torch.float32, torch.bfloat16):
+        tag = "f32/i32" if vdt == torch.float32 else "bf16/i32"
+        v = vals_g.to(vdt)
+        got = ops.sweep_rows_gs(v, cols_g, b_g, x_g, picks_g, beta=0.9)
+        want = ref.sweep_rows_gs_ref(v, cols_g, b_g, x_g, picks_g, beta=0.9)
+        torch.cuda.synchronize()
+        e = rel(got, want)
+        check(e <= SWEEP_RTOL, f"sweep_rows_gs global path {tag} n="
+              f"{GS_GLOBAL_N} width={GS_GLOBAL_WIDTH} k={GS_GLOBAL_K} {PREFIX} "
+              f"picks: rel err {e:.3e} <= {SWEEP_RTOL:g}")
+        if vdt == torch.float32:
+            errs["sweep_rows_gs_global"] = float((got - want).abs().max())
+    op = ops_by[("spd", None)]
+    vals, cols = op.padded_rows()
+    chunk_gs = draw_picks(op, "gs", SPD_N, generator=gen_gs).to(torch.int32)
+    runs = {ct: sweep_csr.sweep_rows_gs(vals, cols, spd.b, x_spd, chunk_gs,
+                                        beta=1.0, write_base=0, limit=SPD_N,
+                                        _cols_per_block=ct)
+            for ct in (0, 1, 2, 3)}
+    torch.cuda.synchronize()
+    check(all(torch.equal(runs[0], r) for r in runs.values()),
+          f"sweep_rows_gs main-path chunk ({SPD_N} picks, k={K}): the global "
+          "path and the shared-memory path at 1, 2 and 3 columns a CTA agree "
+          "bitwise")
+    del runs
+
     # The ELL and block-banded kernels at the main paths' shapes.  The
     # banded sweep runs the first chunk (one sweep, nb picks) of a
     # main-path pick stream.
@@ -588,6 +652,34 @@ def main() -> int:
                                   block=BLOCK, bands=BANDS, beta=0.9)
         check(torch.equal(one[:, 0], got[:, 0]),
               f"banded_gs_sweep {tag}: column 0 at k={K} bitwise equals k=1")
+
+    # bbmv at ragged shapes, in f32 and bf16, and at the main shape with two
+    # column tiles (the kernel's column-tile width, x staged element by
+    # element) bitwise equal to one (x staged as contiguous runs).
+    for blk in RAGGED_BLOCKS:
+        for vdt in (torch.float32, torch.bfloat16):
+            tiles = torch.randn((RAGGED_NB, 2 * BANDS + 1, blk, blk),
+                                generator=gen_gs, device=dev).to(vdt)
+            for kk in RAGGED_KS if vdt == torch.float32 else (K,):
+                xr = torch.randn((RAGGED_NB * blk, kk), generator=gen_gs,
+                                 device=dev)
+                y = ops.bbmv(tiles, xr, bands=BANDS, block=blk)
+                want = ref.bbmv_ref(tiles, xr, bands=BANDS, block=blk)
+                torch.cuda.synchronize()
+                scale = ref.bbmv_ref(tiles.abs(), xr.abs(), bands=BANDS,
+                                     block=blk)
+                err = (y - want).abs()
+                check(bool((err <= BBMV_RTOL * scale + BBMV_ATOL).all()),
+                      f"bbmv {str(vdt)[6:]} nb={RAGGED_NB} block={blk} "
+                      f"bands={BANDS} k={kk}: max|kernel - plain| = "
+                      f"{float(err.max()):.3e} within {BBMV_RTOL:g}*(|A||x|)"
+                      f" + {BBMV_ATOL:g}")
+    op = ops_by[("banded", None)]
+    one_tile = ops.bbmv(op.A_bands, x_band, bands=BANDS, block=BLOCK)
+    two_tiles = _bbmv.bbmv(op.A_bands, x_band, bands=BANDS, block=BLOCK,
+                           _col_warps=1)
+    check(torch.equal(one_tile, two_tiles), f"bbmv nb={nb} block={BLOCK} "
+          f"k={K}: two column tiles of 32 bitwise equal one of 64")
 
     # The distributed engine's local-phase kernels at the main paths'
     # shapes: sweep_rows_rk_delta on a PREFIX-pick prefix of rank 0's slab
@@ -1084,7 +1176,7 @@ def main() -> int:
     val_b, idx_b = 4, 4
 
     def sweep_entry(name, op, run, run_plain, picks, per_pick_flops,
-                    extra_bytes_per_pick, source_line, carries=1):
+                    extra_bytes_per_pick, source_line, carries=1, **extra):
         ms = cuda_ms(run, 10)
         plain = cuda_ms(run_plain, 1)
         nnz_r = op.row_nnz[picks.long()].double()
@@ -1103,16 +1195,27 @@ def main() -> int:
             source="src/repro_torch/csrc/sweep_csr.cu",
             replaces=source_line, launches=launches[name],
             max_abs_err=errs[(name, None)], ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=by, library_ms=None))
+            bound_ms=b_ms, bound_by=by, library_ms=None, **extra))
 
+    # sweep_rows_gs: "ms" is the shared-memory path the wrapper takes at
+    # this n, "global_ms" the global path on the same inputs (the bare
+    # launcher told to take it).
     op = ops_by[("spd", None)]
     vals, cols = op.padded_rows()
+    gs_picks32 = gs_picks.to(torch.int32)
+    global_ms = cuda_ms(functools.partial(
+        sweep_csr.sweep_rows_gs, vals, cols, spd.b, x_spd, gs_picks32,
+        beta=1.0, write_base=0, limit=SPD_N, _cols_per_block=0), 10)
+    print(f"  sweep_rows_gs global path: {global_ms:.4f} ms for {PREFIX} picks "
+          f"({global_ms * 1e3 / PREFIX:.4f} us/pick)", flush=True)
     sweep_entry(
         "sweep_rows_gs", op,
         lambda: ops.sweep_rows_gs(vals, cols, spd.b, x_spd, gs_picks),
         lambda: ref.sweep_rows_gs_ref(vals, cols, spd.b, x_spd, gs_picks),
         gs_picks, lambda z: 2 * z * K + 3 * K, 0,
-        "src/repro/kernels/sweep_csr.py:135")
+        "src/repro/kernels/sweep_csr.py:135", global_ms=global_ms,
+        global_max_abs_err=errs["sweep_rows_gs_global"],
+        cols_per_block=ct_main)
     op_l = ops_by[("lsq", None)]
     vals_l, cols_l = op_l.padded_rows()
     rn_l = op_l.row_norms_sq()
@@ -1149,10 +1252,32 @@ def main() -> int:
                                            full_gs), 5)
     print(f"  sweep_rows_gs, one main-path chunk ({SPD_N} picks): {ms:.4f} ms "
           f"({ms * 1e3 / SPD_N:.4f} us/pick)", flush=True)
+    # the GS paths on that chunk in turns (shared, global, global, shared),
+    # then the shared-memory path at 1, 2 and 3 columns a CTA in turns
+    full_gs32 = full_gs.to(torch.int32)
+
+    def gs_path(ct):
+        return functools.partial(sweep_csr.sweep_rows_gs, vals, cols, spd.b,
+                                 x_spd, full_gs32, beta=1.0, write_base=0,
+                                 limit=SPD_N, _cols_per_block=ct)
+
+    turns = [(ct, cuda_ms(gs_path(ct), 5))
+             for ct in (ct_main, 0, 0, ct_main, 1, 2, 3, 3, 2, 1)]
+    print("  sweep_rows_gs main-path chunk by path, in turns (ms, us/pick): "
+          + "; ".join(f"{'global' if ct == 0 else f'shared ct={ct}'} "
+                      f"{t:.4f} ({t * 1e3 / SPD_N:.4f})" for ct, t in turns),
+          flush=True)
+    # a short sweep (the PREFIX-pick checks' picks), where each CTA's copy
+    # of its columns in and out weighs more: one column a CTA against three
+    turns = [(ct, cuda_ms(functools.partial(
+        sweep_csr.sweep_rows_gs, vals, cols, spd.b, x_spd, gs_picks32,
+        beta=1.0, write_base=0, limit=SPD_N, _cols_per_block=ct), 10))
+        for ct in (1, 3, 3, 1)]
+    print(f"  sweep_rows_gs {PREFIX} picks by columns a CTA, in turns: "
+          + "; ".join(f"ct={ct} {t:.4f} ms" for ct, t in turns), flush=True)
     # The dispatch seam: the checked wrapper against the bare launcher on
     # the same chunk, in turns (wrapper, bare, bare, wrapper); and the
     # checks alone on the host clock with the card idle.
-    full_gs32 = full_gs.to(torch.int32)
     wrapped = functools.partial(ops.sweep_rows_gs, vals, cols, spd.b, x_spd,
                                 full_gs)
     bare = functools.partial(sweep_csr.sweep_rows_gs, vals, cols, spd.b, x_spd,
@@ -1293,13 +1418,22 @@ def main() -> int:
     print(f"  bbmv nb={nb} block={BLOCK} bands={BANDS} ({tiles} tiles): "
           f"{ms:.4f} ms; plain {plain_ms:.4f} ms; {lib_note}; bound "
           f"{b_ms:.5f} ms ({by})", flush=True)
+    # the column tile: one of 64 columns (the kernel's rule at k = 51, 128
+    # CTAs) against two of 32 (256 CTAs), in turns
+    tiles_turns = [(wc, cuda_ms(functools.partial(
+        _bbmv.bbmv, op.A_bands, x_band, bands=BANDS, block=BLOCK,
+        _col_warps=wc), 50)) for wc in (2, 1, 1, 2)]
+    print("  bbmv by column tile, in turns: " + "; ".join(
+        f"{32 * wc} columns {t:.4f} ms" for wc, t in tiles_turns), flush=True)
     lines.append(dict(name="bbmv", route="cuda",
                       source="src/repro_torch/csrc/bbmv.cu",
                       replaces="src/repro/kernels/bbmv.py:53",
                       launches=launches["bbmv"],
                       max_abs_err=errs[("bbmv", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms))
+                      library_ms=lib_ms,
+                      two_column_tiles_ms=min(t for wc, t in tiles_turns
+                                              if wc == 1)))
 
     # banded_gs_sweep: one main-path chunk (nb picks).  Bytes, by the
     # sweeps' rule: per pick its 2*bands+1 tiles, its b block and its id,

@@ -1,5 +1,6 @@
-// Band-tile products shared by the block-banded kernels (bbmv.cu,
-// banded_gs.cu: the GS and RK sweeps).
+// Band-tile products of the banded sweeps (banded_gs.cu: the GS and RK
+// sweeps).  bbmv.cu has its own register-tiled, double-buffered product
+// and does not use band_part.
 //
 // A CTA of kBandThreads threads owns `block` rows x `kt` columns of
 // outputs, at most kBandThreads * OPT of them, OPT per thread: output
@@ -20,7 +21,7 @@
 // arithmetic and eight loads per thread in flight; on an H100 80GB HBM3
 // at 700 W that halved the sweep's time against one load at a time, while
 // staging whole chunks into register arrays (more registers, fewer CTAs
-// per SM) made both kernels slower (PERF.md).
+// per SM) made the sweep and the first bbmv slower (PERF.md).
 #pragma once
 
 #include "common.cuh"

@@ -13,45 +13,74 @@
 //        the replica x, and the same contribution is also added to the
 //        round delta d, which the engine all-reduces at round end.
 //
-// The RK contribution is rounded explicitly, (beta * v) then * g, then the
-// add (__fmul_rn / __fadd_rn: no contraction to an FMA), as the reference
-// and the plain version round it.  So both carries of the delta sweep see
-// bitwise the same contributions in the same order: from x = d = 0 the two
-// outputs are bitwise equal.
+// Updates are rounded explicitly, as the plain versions round them: GS
+// x + (beta * (b - dot)), RK (beta * v) then * g, then the add
+// (__fsub_rn / __fmul_rn / __fadd_rn: no contraction to an FMA).  So both
+// carries of the delta sweep see bitwise the same contributions in the
+// same order (from x = d = 0 the two outputs are bitwise equal), and the
+// two GS paths below are bitwise equal.
 //
-// What bounds it.  Each step reads what the previous step wrote, so a
+// What bounds them.  Each step reads what the previous step wrote, so a
 // column is one chain of `steps` dependent steps.  The bytes a step needs
 // (one row window, one b row) are a few hundred; the roofline bound from
-// bytes is far below what the chain's latency allows (a dependent gather
-// from L2, a 5-level shuffle reduction and a store per step).  The kernel
-// is latency-bound, and its time per pick is the number to watch.
+// bytes is far below what the chain's latency allows.  The kernels are
+// latency-bound, and their time per pick is the number to watch.
 //
-// Design.  The sequential grid of the Pallas kernel becomes a loop over
-// picks inside the block.  RHS columns are independent (each has its own
-// gamma), so one warp owns one column and several columns share a block;
-// the grid covers k.  At each step the lanes stride over the `width`
-// slots, reduce with shuffles, then GS lane 0 writes x[base + r, c] and RK
-// lanes scatter their own real slots.  __syncwarp() closes the step so the
-// next step's gathers see its writes (a column never spans warps, so no
-// block barrier is needed).  The iterate stays in global memory; at the
-// main-path sizes it is L2-resident.
+// RHS columns are independent (each has its own gamma), so one warp owns
+// one column: the sequential grid of the Pallas kernel becomes a loop over
+// picks inside the warp.  At each step lane l takes the slots l, l + 32,
+// ... of the row window in that order (fmaf), the warp reduces with the
+// butterfly of warp_sum, and the update follows; __syncwarp() closes the
+// step so the next step's gathers see its writes (a column never spans
+// warps, so no block barrier is needed).
 //
-// Padding slots (value 0, column 0; operators.CsrOp.padded_rows) are a race
-// for a parallel RK scatter: several lanes would update x[0, c] at once.
-// The RK scatter therefore skips slots whose value is 0, which adds the
-// same exact zero the sequential Pallas scatter adds.  Real columns of one
-// row are distinct, so the remaining lane writes never collide.
+// GS.  A step's dependent chain is the gather of x, the fmaf, the
+// reduction and the update; nothing else waits on x:
+//  (a) The pick ids, the row windows and b do not depend on x, so they
+//      are fetched ahead: the warp loads the ids 32 at a time (lane l holds
+//      picks[s0 + l], broadcast by __shfl_sync) and keeps the first
+//      kGsSlots * 32 slots of the windows and the b value of the next
+//      kGsDepth picks in a register ring.  Slots past that (rows wider
+//      than 64) are loaded in the step, in the same slot order.  The row a
+//      step updates is read with its gathers, not after the reduction.
+//  (b) Shared-memory path: a CTA owns `ct` RHS columns and copies
+//      x[0:n, c0:c0+ct] into dynamic shared memory (one column after the
+//      other) at the start, gathers from and writes to it, and writes the
+//      columns back at the end.  All n rows are held: write_base + r may
+//      be any row of x.  The launcher picks ct from the opt-in capacity
+//      (sweep_shared_capacity; 227 KB on an H100: n <= 58112 at ct = 1).
+//      What is left of a step is a shared-memory gather, the five
+//      shuffle levels of the butterfly and the update: a few hundred
+//      cycles, against the three dependent L2 round trips of the first
+//      version.
+//  (c) Global path, for n * ct * 4 bytes above the capacity: the same warp
+//      code with x in global memory, four columns a CTA; its gather is an
+//      L2 round trip.
+//  (d) Both paths run the same step function, slot order, butterfly and
+//      explicitly rounded update, so on the same inputs they are bitwise
+//      equal, at any ct.  The launcher (kernels/sweep_csr.py) chooses the
+//      path by size; it is not a fallback: both run on the card.
+//
+// RK.  The iterate stays in global memory; at the main-path sizes it is
+// L2-resident.  Padding slots (value 0, column 0;
+// operators.CsrOp.padded_rows) are a race for a parallel RK scatter:
+// several lanes would update x[0, c] at once.  The RK scatter therefore
+// skips slots whose value is 0, which adds the same exact zero the
+// sequential Pallas scatter adds.  Real columns of one row are distinct, so
+// the remaining lane writes never collide.
 //
 // Pick ids are checked on the device (0 <= r < limit) with assert(), as
 // PyTorch's indexing kernels check theirs, by a small kernel launched just
 // before the sweep on the same stream (check_picks in common.cuh): a bad
 // id stops there with a device-side assert, and the sweep queued behind it
 // never runs.  The host never reads the picks back.  The check stays out
-// of the sweep's loop: an assert inside the dependent chain made the sweeps 11-15%
-// slower (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md).
+// of the sweep's loop: an assert inside the dependent chain made the
+// sweeps 11-15% slower (chip_smoke.py on an H100 80GB HBM3 at 700 W;
+// PERF.md).
 //
 // Each C entry launches on the caller's stream and returns
-// cudaGetLastError() of the launch.
+// cudaGetLastError() of the launch (for the GS shared-memory path, first
+// the error of cudaFuncSetAttribute, which opts into the shared memory).
 #include "common.cuh"
 
 namespace {
@@ -67,26 +96,131 @@ __device__ __forceinline__ float window_dot(const V* vr, const I* cr, const floa
   return warp_sum(acc);
 }
 
-// x is read and written by the same warp across steps: it is not declared
-// __restrict__ const, so its loads are never routed through the read-only
-// (non-coherent) cache.
+constexpr int kGsDepth = 8;           // picks whose windows are fetched ahead
+constexpr int kGsSlots = 2;           // window slots a lane holds per pick
+constexpr int kGsSharedThreads = 256; // CTA of the shared-memory path
+constexpr unsigned kFull = 0xffffffffu;
+
+// What a GS step needs that does not depend on x: the pick's row, the
+// lane's first kGsSlots slots of its window and (lane 0) its b value.
+struct GsWindow {
+  int r;
+  float b;
+  float v[kGsSlots];
+  int col[kGsSlots];
+};
+
 template <typename V, typename I>
-__global__ void __launch_bounds__(32 * kColsPerBlock)
-    gs_kernel(const V* __restrict__ vals, const I* __restrict__ cols, const float* __restrict__ b,
-              float* x, const int* __restrict__ picks, int width, int k, int steps, int write_base,
-              float beta) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
-  if (c >= k) return;  // warp-uniform
-  for (int s = 0; s < steps; ++s) {
-    const int r = picks[s];
-    const float dot = window_dot(vals + (size_t)r * width, cols + (size_t)r * width, x, width, k,
-                                 c, lane);
-    if (lane == 0) {
-      float* xr = x + (size_t)(write_base + r) * k + c;
-      *xr = *xr + beta * (b[(size_t)r * k + c] - dot);
+__device__ __forceinline__ void gs_fetch(GsWindow& w, int r, const V* __restrict__ vals,
+                                         const I* __restrict__ cols, const float* __restrict__ b,
+                                         int width, int k, int c, int lane) {
+  const size_t base = (size_t)r * width;
+  w.r = r;
+#pragma unroll
+  for (int q = 0; q < kGsSlots; ++q) {
+    const int s = lane + 32 * q;
+    w.v[q] = s < width ? to_f32(vals[base + s]) : 0.f;
+    w.col[q] = s < width ? (int)cols[base + s] : 0;
+  }
+  w.b = lane == 0 ? b[(size_t)r * k + c] : 0.f;
+}
+
+// Row `row` of a column: x in shared memory holds the column contiguously,
+// in global memory its rows are k floats apart.
+template <bool kShared>
+__device__ __forceinline__ float& x_at(float* xc, int row, int k) {
+  if constexpr (kShared) {
+    return xc[row];
+  } else {
+    return xc[(size_t)row * k];
+  }
+}
+
+// One GS step on column xc: the dependent chain.  The row it updates is
+// read with the gathers (every lane, one address), not after the
+// reduction, so on the global path it costs no round trip of its own.
+// (No step writes x between that read and this step's update.)
+template <bool kShared, typename V, typename I>
+__device__ __forceinline__ void gs_step(float* xc, int k, const GsWindow& w,
+                                        const V* __restrict__ vals, const I* __restrict__ cols,
+                                        int width, int write_base, float beta, int lane) {
+  float& xr = x_at<kShared>(xc, write_base + w.r, k);
+  const float old = xr;
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < kGsSlots; ++q)
+    if (lane + 32 * q < width) acc = fmaf(w.v[q], x_at<kShared>(xc, w.col[q], k), acc);
+  const size_t base = (size_t)w.r * width;
+  for (int s = lane + 32 * kGsSlots; s < width; s += 32)
+    acc = fmaf(to_f32(vals[base + s]), x_at<kShared>(xc, (int)cols[base + s], k), acc);
+  const float dot = warp_sum(acc);
+  if (lane == 0) xr = __fadd_rn(old, __fmul_rn(beta, __fsub_rn(w.b, dot)));
+  __syncwarp();
+}
+
+// The whole sweep of one warp on its column c (xc: the column's row 0).
+// The step loop is unrolled by 32 so that every ring slot and shuffle
+// source lane is a compile-time constant (the ring stays in registers).
+template <bool kShared, typename V, typename I>
+__device__ __forceinline__ void gs_warp_sweep(float* xc, int k, int c, const V* __restrict__ vals,
+                                              const I* __restrict__ cols,
+                                              const float* __restrict__ b,
+                                              const int* __restrict__ picks, int width, int steps,
+                                              int write_base, float beta, int lane) {
+  GsWindow ring[kGsDepth];
+  // Past the last step the ids are 0: row 0 exists whenever there is a step.
+  int ids = lane < steps ? picks[lane] : 0;
+#pragma unroll
+  for (int u = 0; u < kGsDepth; ++u)
+    gs_fetch(ring[u], __shfl_sync(kFull, ids, u), vals, cols, b, width, k, c, lane);
+  for (int s0 = 0; s0 < steps; s0 += 32) {
+    const int next = s0 + 32 + lane < steps ? picks[s0 + 32 + lane] : 0;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      if (s0 + u >= steps) break;  // warp-uniform
+      gs_step<kShared>(xc, k, ring[u % kGsDepth], vals, cols, width, write_base, beta, lane);
+      const int t = u + kGsDepth;  // the step whose window refills this slot
+      const int r = t < 32 ? __shfl_sync(kFull, ids, t & 31) : __shfl_sync(kFull, next, t & 31);
+      if (s0 + t < steps) gs_fetch(ring[u % kGsDepth], r, vals, cols, b, width, k, c, lane);
     }
-    __syncwarp();
+    ids = next;
+  }
+}
+
+// kShared: the shared-memory path, `ct` columns a CTA (blockDim
+// kGsSharedThreads); otherwise the global path, kColsPerBlock columns a
+// CTA.  x is read and written by the same warp across steps: it is not
+// declared __restrict__ const, so its loads are never routed through the
+// read-only (non-coherent) cache.
+template <typename V, typename I, bool kShared>
+__global__ void __launch_bounds__(kGsSharedThreads)
+    gs_kernel(const V* __restrict__ vals, const I* __restrict__ cols, const float* __restrict__ b,
+              float* x, const int* __restrict__ picks, int width, int n, int k, int steps,
+              int write_base, float beta, int ct) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (kShared) {
+    extern __shared__ float xs[];
+    const int c0 = blockIdx.x * ct;
+    const int cn = k - c0 < ct ? k - c0 : ct;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < n * cn; e += blockDim.x) {
+      const int row = e / cn, cc = e - row * cn;
+      xs[cc * n + row] = x[(size_t)row * k + c0 + cc];
+    }
+    __syncthreads();
+    if (warp < cn)
+      gs_warp_sweep<true>(xs + warp * n, k, c0 + warp, vals, cols, b, picks, width, steps,
+                          write_base, beta, lane);
+    __syncthreads();
+#pragma unroll 4
+    for (int e = threadIdx.x; e < n * cn; e += blockDim.x) {
+      const int row = e / cn, cc = e - row * cn;
+      x[(size_t)row * k + c0 + cc] = xs[cc * n + row];
+    }
+  } else {
+    const int c = blockIdx.x * kColsPerBlock + warp;
+    if (c >= k) return;  // warp-uniform
+    gs_warp_sweep<false>(x + c, k, c, vals, cols, b, picks, width, steps, write_base, beta, lane);
   }
 }
 
@@ -121,17 +255,38 @@ __global__ void __launch_bounds__(32 * kColsPerBlock)
 
 inline dim3 grid_for(int k) { return dim3((k + kColsPerBlock - 1) / kColsPerBlock); }
 
+template <typename V, typename I>
+int launch_gs(const void* vals, const void* cols, const void* b, void* x, const void* picks,
+              int width, int n, int k, int steps, int limit, int write_base, float beta, int ct,
+              void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ct < 0 || ct > kGsSharedThreads / 32) return (int)cudaErrorInvalidValue;
+  launch_check(picks, steps, limit, s);
+  if (ct > 0) {
+    const size_t bytes = sizeof(float) * (size_t)n * ct;
+    const cudaError_t err = cudaFuncSetAttribute(
+        gs_kernel<V, I, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    gs_kernel<V, I, true><<<(k + ct - 1) / ct, kGsSharedThreads, bytes, s>>>(
+        (const V*)vals, (const I*)cols, (const float*)b, (float*)x, (const int*)picks, width, n,
+        k, steps, write_base, beta, ct);
+  } else {
+    gs_kernel<V, I, false><<<grid_for(k), 32 * kColsPerBlock, 0, s>>>(
+        (const V*)vals, (const I*)cols, (const float*)b, (float*)x, (const int*)picks, width, n,
+        k, steps, write_base, beta, 0);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// ct: RHS columns a CTA holds in shared memory, 0 for the global path.
 #define GS_ENTRY(NAME, V, I)                                                                     \
   extern "C" int NAME(const void* vals, const void* cols, const void* b, void* x,               \
-                      const void* picks, int width, int k, int steps, int limit, int write_base, \
-                      float beta, void* stream) {                                                \
-    launch_check(picks, steps, limit, (cudaStream_t)stream);                                     \
-    gs_kernel<V, I><<<grid_for(k), 32 * kColsPerBlock, 0, (cudaStream_t)stream>>>(              \
-        (const V*)vals, (const I*)cols, (const float*)b, (float*)x, (const int*)picks, width, k, \
-        steps, write_base, beta);                                                                \
-    return (int)cudaGetLastError();                                                              \
+                      const void* picks, int width, int n, int k, int steps, int limit,         \
+                      int write_base, float beta, int ct, void* stream) {                       \
+    return launch_gs<V, I>(vals, cols, b, x, picks, width, n, k, steps, limit, write_base, beta, \
+                           ct, stream);                                                          \
   }
 
 #define RK_ENTRY(NAME, V, I)                                                                     \
@@ -155,6 +310,11 @@ inline dim3 grid_for(int k) { return dim3((k + kColsPerBlock - 1) / kColsPerBloc
         (const int*)picks, width, k, steps, beta);                                               \
     return (int)cudaGetLastError();                                                              \
   }
+
+// The opt-in shared memory one CTA may use on `device`, in bytes.
+extern "C" int sweep_shared_capacity(int device, int* bytes) {
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
 
 GS_ENTRY(sweep_rows_gs_f32_i32, float, int32_t)
 GS_ENTRY(sweep_rows_gs_bf16_i16, __nv_bfloat16, int16_t)

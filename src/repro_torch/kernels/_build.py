@@ -110,6 +110,17 @@ def library(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def entry(source: str, name: str, argtypes):
+    """The C entry ``name`` of ``csrc/<source>.cu``, returning int, with its
+    argument types declared."""
+    if name not in _entries:
+        fn = getattr(library(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return _entries[name]
+
+
 def c_entry(source: str, kernel: str, vals_dtype, cols_dtype, argtypes):
     """The C entry ``<kernel>_<suffix>`` of ``csrc/<source>.cu`` for this
     value/index type pair (``cols_dtype=None``: a kernel with no index
@@ -117,13 +128,7 @@ def c_entry(source: str, kernel: str, vals_dtype, cols_dtype, argtypes):
     declared."""
     suffix = (VALUE_SUFFIX[vals_dtype] if cols_dtype is None
               else SUFFIX[(vals_dtype, cols_dtype)])
-    name = f"{kernel}_{suffix}"
-    if name not in _entries:
-        fn = getattr(library(source), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return _entries[name]
+    return entry(source, f"{kernel}_{suffix}", argtypes)
 
 
 def check_launch(err: int, kernel: str) -> None:

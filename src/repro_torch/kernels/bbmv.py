@@ -5,9 +5,9 @@ Port of ``repro/kernels/bbmv.py``: band tiles
 ``A_bands[nb, 2*bands+1, block, block]`` hold the ``block x block`` tiles
 of block row ``i`` at block columns ``i - bands .. i + bands``; tiles whose
 block column falls outside the matrix are zero.  ``bbmv`` computes
-``y_i = sum_d A_bands[i, d] @ x[block i + d - bands]``, one CTA per (block
-row, column tile); the kernel design and what bounds it are in the
-source's header note.
+``y_i = sum_d A_bands[i, d] @ x[block i + d - bands]``, one CTA per
+(column tile, block row), register-tiled and double-buffered; the kernel
+design and what bounds it are in the source's header note.
 
 ``bbmv`` takes tensors already checked by ``kernels/ops.py`` (CUDA,
 contiguous, matching shapes and types) and launches on PyTorch's current
@@ -25,7 +25,11 @@ from repro_torch.kernels.ref import band_valid
 LAUNCHES = {"bbmv": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+# Every C entry of csrc/bbmv.cu this launcher loads, with its argument
+# types.
+C_ENTRIES = {f"bbmv_{suffix}": _ARGS
+             for suffix in _build.VALUE_SUFFIX.values()}
 
 
 def dense_to_bands(A: torch.Tensor, *, bands: int, block: int) -> torch.Tensor:
@@ -54,8 +58,12 @@ def pack_bands_local(A_bands: torch.Tensor, bands: int) -> torch.Tensor:
     return A_bands.masked_fill(~valid[:, :, None, None], 0)
 
 
-def bbmv(A_bands, x, *, bands: int, block: int):
-    """``y = A @ x`` (nb*block, k) f32 on the card."""
+def bbmv(A_bands, x, *, bands: int, block: int, _col_warps: int = 0):
+    """``y = A @ x`` (nb*block, k) f32 on the card.
+
+    ``_col_warps`` (1, 2 or 4) sets the column tile to 32 times that many
+    columns, for ``chip_smoke.py``, which times the tile widths against
+    each other; 0 takes the kernel's own rule."""
     nb = A_bands.shape[0]
     k = x.shape[1]
     y = torch.empty((nb * block, k), dtype=torch.float32, device=x.device)
@@ -63,7 +71,7 @@ def bbmv(A_bands, x, *, bands: int, block: int):
         return y
     fn = _build.c_entry("bbmv", "bbmv", A_bands.dtype, None, _ARGS)
     err = fn(A_bands.data_ptr(), x.data_ptr(), y.data_ptr(), nb, bands, block,
-             k, torch.cuda.current_stream(x.device).cuda_stream)
+             k, int(_col_warps), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(err, "bbmv")
     LAUNCHES["bbmv"] += 1
     return y

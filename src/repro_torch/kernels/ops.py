@@ -35,7 +35,8 @@ _COUNTERS = (sweep_csr.LAUNCHES, _spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
 
 # Largest block the band-tile and dense block-GS CUDA kernels take
 # (csrc/banded.cuh, csrc/block_gs.cu: one CTA's staged rows must fit the
-# shared memory a launch gets without opting in).
+# shared memory a launch gets without opting in; csrc/bbmv.cu: at most
+# four row warps and two staged chunks of all rows).
 MAX_BLOCK = 256
 
 
