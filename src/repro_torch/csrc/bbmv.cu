@@ -30,6 +30,11 @@
 // the main shape that is 128 CTAs of 4 warps, one per SM: the problem has
 // 128 x 64 outputs per block row, so a larger micro-tile would leave
 // schedulers idle and a smaller one would be bound by shared memory.
+// A broadcast load still delivers its full width to every lane, so the 16
+// words per 64 FMAs cost 16 warp-wide shared loads however the lanes
+// share addresses; and the tile stays row-major, as cp.async moves 16
+// bytes of one tile row (contiguous in j), where a transposed [j][r] copy
+// would take one 4-byte copy per element.
 //
 // Staging.  Stages are double-buffered with one block barrier each: after
 // the barrier that publishes stage t (and ends every read of stage t-1),
