@@ -71,7 +71,7 @@ SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # |y_k - y_p| <= rtol * (|A| |x|) + atol
 # random walk of ~sqrt(640) * 2^-24 ~ 1.5e-6 relative to |A| |x|.
 BBMV_RTOL, BBMV_ATOL = 2e-5, 1e-6
 # The GS sweep's global-memory path: synthetic row windows over an iterate
-# too tall for shared memory (kernels/sweep_csr.py::gs_columns_per_block).
+# too tall for shared memory (kernels/sweep_csr.py::gs_fits_shared).
 GS_GLOBAL_N, GS_GLOBAL_WIDTH, GS_GLOBAL_K = 131072, 51, 4
 # bbmv at ragged shapes: block 20 is not a multiple of the kernel's 64-row
 # warp tile (its tile rows are still 16-byte aligned); block 18 rows are
@@ -557,12 +557,10 @@ def main() -> int:
     # of their own leave the other checks' inputs as they were.
     gen_gs = torch.Generator(dev).manual_seed(SEED + 15)
     capacity = sweep_csr.shared_capacity(dev)
-    ct_main = sweep_csr.gs_columns_per_block(SPD_N, K, capacity)
-    check(ct_main > 0, f"sweep_rows_gs n={SPD_N} k={K} takes the shared-memory "
-          f"path: {ct_main} column(s) a CTA of the {capacity} bytes a CTA "
-          "may opt into")
-    check(sweep_csr.gs_columns_per_block(GS_GLOBAL_N, GS_GLOBAL_K,
-                                         capacity) == 0,
+    check(sweep_csr.gs_fits_shared(SPD_N, capacity),
+          f"sweep_rows_gs n={SPD_N} takes the shared-memory path: one column "
+          f"a CTA within the {capacity} bytes a CTA may opt into")
+    check(not sweep_csr.gs_fits_shared(GS_GLOBAL_N, capacity),
           f"sweep_rows_gs n={GS_GLOBAL_N} takes the global path")
     rows_g = torch.arange(GS_GLOBAL_N, device=dev)
     cols_g = torch.randint(0, GS_GLOBAL_N, (GS_GLOBAL_N, GS_GLOBAL_WIDTH),
@@ -590,15 +588,14 @@ def main() -> int:
     op = ops_by[("spd", None)]
     vals, cols = op.padded_rows()
     chunk_gs = draw_picks(op, "gs", SPD_N, generator=gen_gs).to(torch.int32)
-    runs = {ct: sweep_csr.sweep_rows_gs(vals, cols, spd.b, x_spd, chunk_gs,
-                                        beta=1.0, write_base=0, limit=SPD_N,
-                                        _cols_per_block=ct)
-            for ct in (0, 1, 2, 3)}
+    runs = [sweep_csr.sweep_rows_gs(vals, cols, spd.b, x_spd, chunk_gs,
+                                    beta=1.0, write_base=0, limit=SPD_N,
+                                    _shared=shared)
+            for shared in (False, True)]
     torch.cuda.synchronize()
-    check(all(torch.equal(runs[0], r) for r in runs.values()),
+    check(torch.equal(*runs),
           f"sweep_rows_gs main-path chunk ({SPD_N} picks, k={K}): the global "
-          "path and the shared-memory path at 1, 2 and 3 columns a CTA agree "
-          "bitwise")
+          "path and the shared-memory path agree bitwise")
     del runs
 
     # The ELL and block-banded kernels at the main paths' shapes.  The
@@ -1205,7 +1202,7 @@ def main() -> int:
     gs_picks32 = gs_picks.to(torch.int32)
     global_ms = cuda_ms(functools.partial(
         sweep_csr.sweep_rows_gs, vals, cols, spd.b, x_spd, gs_picks32,
-        beta=1.0, write_base=0, limit=SPD_N, _cols_per_block=0), 10)
+        beta=1.0, write_base=0, limit=SPD_N, _shared=False), 10)
     print(f"  sweep_rows_gs global path: {global_ms:.4f} ms for {PREFIX} picks "
           f"({global_ms * 1e3 / PREFIX:.4f} us/pick)", flush=True)
     sweep_entry(
@@ -1214,8 +1211,7 @@ def main() -> int:
         lambda: ref.sweep_rows_gs_ref(vals, cols, spd.b, x_spd, gs_picks),
         gs_picks, lambda z: 2 * z * K + 3 * K, 0,
         "src/repro/kernels/sweep_csr.py:135", global_ms=global_ms,
-        global_max_abs_err=errs["sweep_rows_gs_global"],
-        cols_per_block=ct_main)
+        global_max_abs_err=errs["sweep_rows_gs_global"])
     op_l = ops_by[("lsq", None)]
     vals_l, cols_l = op_l.padded_rows()
     rn_l = op_l.row_norms_sq()
@@ -1252,29 +1248,16 @@ def main() -> int:
                                            full_gs), 5)
     print(f"  sweep_rows_gs, one main-path chunk ({SPD_N} picks): {ms:.4f} ms "
           f"({ms * 1e3 / SPD_N:.4f} us/pick)", flush=True)
-    # the GS paths on that chunk in turns (shared, global, global, shared),
-    # then the shared-memory path at 1, 2 and 3 columns a CTA in turns
+    # the GS paths on that chunk in turns (shared, global, global, shared)
     full_gs32 = full_gs.to(torch.int32)
-
-    def gs_path(ct):
-        return functools.partial(sweep_csr.sweep_rows_gs, vals, cols, spd.b,
-                                 x_spd, full_gs32, beta=1.0, write_base=0,
-                                 limit=SPD_N, _cols_per_block=ct)
-
-    turns = [(ct, cuda_ms(gs_path(ct), 5))
-             for ct in (ct_main, 0, 0, ct_main, 1, 2, 3, 3, 2, 1)]
+    turns = [(shared, cuda_ms(functools.partial(
+        sweep_csr.sweep_rows_gs, vals, cols, spd.b, x_spd, full_gs32,
+        beta=1.0, write_base=0, limit=SPD_N, _shared=shared), 5))
+        for shared in (True, False, False, True)]
     print("  sweep_rows_gs main-path chunk by path, in turns (ms, us/pick): "
-          + "; ".join(f"{'global' if ct == 0 else f'shared ct={ct}'} "
-                      f"{t:.4f} ({t * 1e3 / SPD_N:.4f})" for ct, t in turns),
+          + "; ".join(f"{'shared' if shared else 'global'} "
+                      f"{t:.4f} ({t * 1e3 / SPD_N:.4f})" for shared, t in turns),
           flush=True)
-    # a short sweep (the PREFIX-pick checks' picks), where each CTA's copy
-    # of its columns in and out weighs more: one column a CTA against three
-    turns = [(ct, cuda_ms(functools.partial(
-        sweep_csr.sweep_rows_gs, vals, cols, spd.b, x_spd, gs_picks32,
-        beta=1.0, write_base=0, limit=SPD_N, _cols_per_block=ct), 10))
-        for ct in (1, 3, 3, 1)]
-    print(f"  sweep_rows_gs {PREFIX} picks by columns a CTA, in turns: "
-          + "; ".join(f"ct={ct} {t:.4f} ms" for ct, t in turns), flush=True)
     # The dispatch seam: the checked wrapper against the bare launcher on
     # the same chunk, in turns (wrapper, bare, bare, wrapper); and the
     # checks alone on the host clock with the card idle.
@@ -1418,22 +1401,13 @@ def main() -> int:
     print(f"  bbmv nb={nb} block={BLOCK} bands={BANDS} ({tiles} tiles): "
           f"{ms:.4f} ms; plain {plain_ms:.4f} ms; {lib_note}; bound "
           f"{b_ms:.5f} ms ({by})", flush=True)
-    # the column tile: one of 64 columns (the kernel's rule at k = 51, 128
-    # CTAs) against two of 32 (256 CTAs), in turns
-    tiles_turns = [(wc, cuda_ms(functools.partial(
-        _bbmv.bbmv, op.A_bands, x_band, bands=BANDS, block=BLOCK,
-        _col_warps=wc), 50)) for wc in (2, 1, 1, 2)]
-    print("  bbmv by column tile, in turns: " + "; ".join(
-        f"{32 * wc} columns {t:.4f} ms" for wc, t in tiles_turns), flush=True)
     lines.append(dict(name="bbmv", route="cuda",
                       source="src/repro_torch/csrc/bbmv.cu",
                       replaces="src/repro/kernels/bbmv.py:53",
                       launches=launches["bbmv"],
                       max_abs_err=errs[("bbmv", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms,
-                      two_column_tiles_ms=min(t for wc, t in tiles_turns
-                                              if wc == 1)))
+                      library_ms=lib_ms))
 
     # banded_gs_sweep: one main-path chunk (nb picks).  Bytes, by the
     # sweeps' rule: per pick its 2*bands+1 tiles, its b block and its id,

@@ -63,9 +63,10 @@
 // are adjacent in launch order, so with more than one column tile the
 // second read of a tile hits L2.  WC is the smallest of 1, 2, 4 with
 // 32 * WC >= k, at most 8 / WR warps a CTA: at the main shape one CTA per
-// block row holds all 51 columns (KT = 64).  chip_smoke.py times WC = 1
-// (two column tiles, 256 CTAs) against it; the C entries take `col_warps`
-// (0 = the rule) for that.
+// block row holds all 51 columns (KT = 64); two column tiles of 32 (256
+// CTAs) were 20% slower (PERF.md).  chip_smoke.py holds WC = 1 bitwise
+// against the rule's result; the C entries take `col_warps` (0 = the rule)
+// for that.
 //
 // Each C entry launches on the caller's stream and returns the error of
 // cudaFuncSetAttribute (the stage buffers exceed the 48 KB a launch gets

@@ -43,22 +43,23 @@
 //      kGsDepth picks in a register ring.  Slots past that (rows wider
 //      than 64) are loaded in the step, in the same slot order.  The row a
 //      step updates is read with its gathers, not after the reduction.
-//  (b) Shared-memory path: a CTA owns `ct` RHS columns and copies
-//      x[0:n, c0:c0+ct] into dynamic shared memory (one column after the
-//      other) at the start, gathers from and writes to it, and writes the
-//      columns back at the end.  All n rows are held: write_base + r may
-//      be any row of x.  The launcher picks ct from the opt-in capacity
-//      (sweep_shared_capacity; 227 KB on an H100: n <= 58112 at ct = 1).
-//      What is left of a step is a shared-memory gather, the five
-//      shuffle levels of the butterfly and the update: a few hundred
-//      cycles, against the three dependent L2 round trips of the first
-//      version.
-//  (c) Global path, for n * ct * 4 bytes above the capacity: the same warp
-//      code with x in global memory, four columns a CTA; its gather is an
-//      L2 round trip.
+//      The depth, 32 picks (one batch of ids), was the fastest of 8, 16
+//      and 32 on both paths (PERF.md).
+//  (b) Shared-memory path: a CTA owns one RHS column and copies x[0:n, c]
+//      into dynamic shared memory at the start, gathers from and writes
+//      to it, and writes the column back at the end.  All n rows are
+//      held: write_base + r may be any row of x.  The launcher takes this
+//      path when 4 n bytes fit the opt-in capacity (sweep_shared_capacity;
+//      227 KB on an H100: n <= 58112).  What is left of a step is a
+//      shared-memory gather, the five shuffle levels of the butterfly and
+//      the update: a few hundred cycles, against the three dependent L2
+//      round trips of the first version.  Two or three columns a CTA were
+//      no faster on a main-path chunk and slower on short sweeps (PERF.md).
+//  (c) Global path, for n above that: the same warp code with x in global
+//      memory, four columns a CTA; its gather is an L2 round trip.
 //  (d) Both paths run the same step function, slot order, butterfly and
-//      explicitly rounded update, so on the same inputs they are bitwise
-//      equal, at any ct.  The launcher (kernels/sweep_csr.py) chooses the
+//      explicitly rounded update, so on the same inputs they are
+//      bitwise equal.  The launcher (kernels/sweep_csr.py) chooses the
 //      path by size; it is not a fallback: both run on the card.
 //
 // RK.  The iterate stays in global memory; at the main-path sizes it is
@@ -96,7 +97,8 @@ __device__ __forceinline__ float window_dot(const V* vr, const I* cr, const floa
   return warp_sum(acc);
 }
 
-constexpr int kGsDepth = 8;           // picks whose windows are fetched ahead
+constexpr int kGsDepth = 32;          // picks whose windows are fetched ahead
+static_assert(32 % kGsDepth == 0, "the ring depth divides the 32 ids a warp loads");
 constexpr int kGsSlots = 2;           // window slots a lane holds per pick
 constexpr int kGsSharedThreads = 256; // CTA of the shared-memory path
 constexpr unsigned kFull = 0xffffffffu;
@@ -136,6 +138,19 @@ __device__ __forceinline__ float& x_at(float* xc, int row, int k) {
   }
 }
 
+// The slots of a row window past the first kGsSlots * 32, in the step's
+// slot order.  Kept out of line: inlined into every step of the unrolled
+// loop, this rarely taken code made the loop too large for the
+// instruction cache, and every step paid for the misses (PERF.md).
+template <bool kShared, typename V, typename I>
+__device__ __noinline__ float gs_tail(float* xc, int k, int r, const V* __restrict__ vals,
+                                      const I* __restrict__ cols, int width, int lane, float acc) {
+  const size_t base = (size_t)r * width;
+  for (int s = lane + 32 * kGsSlots; s < width; s += 32)
+    acc = fmaf(to_f32(vals[base + s]), x_at<kShared>(xc, (int)cols[base + s], k), acc);
+  return acc;
+}
+
 // One GS step on column xc: the dependent chain.  The row it updates is
 // read with the gathers (every lane, one address), not after the
 // reduction, so on the global path it costs no round trip of its own.
@@ -150,17 +165,17 @@ __device__ __forceinline__ void gs_step(float* xc, int k, const GsWindow& w,
 #pragma unroll
   for (int q = 0; q < kGsSlots; ++q)
     if (lane + 32 * q < width) acc = fmaf(w.v[q], x_at<kShared>(xc, w.col[q], k), acc);
-  const size_t base = (size_t)w.r * width;
-  for (int s = lane + 32 * kGsSlots; s < width; s += 32)
-    acc = fmaf(to_f32(vals[base + s]), x_at<kShared>(xc, (int)cols[base + s], k), acc);
+  if (width > 32 * kGsSlots) acc = gs_tail<kShared>(xc, k, w.r, vals, cols, width, lane, acc);
   const float dot = warp_sum(acc);
   if (lane == 0) xr = __fadd_rn(old, __fmul_rn(beta, __fsub_rn(w.b, dot)));
   __syncwarp();
 }
 
 // The whole sweep of one warp on its column c (xc: the column's row 0).
-// The step loop is unrolled by 32 so that every ring slot and shuffle
-// source lane is a compile-time constant (the ring stays in registers).
+// The step loop is unrolled by the ring depth, so that every ring slot is
+// a compile-time constant (the ring stays in registers), and no further:
+// with only one warp on a column, a longer unrolled loop stalls on
+// instruction fetch (PERF.md).
 template <bool kShared, typename V, typename I>
 __device__ __forceinline__ void gs_warp_sweep(float* xc, int k, int c, const V* __restrict__ vals,
                                               const I* __restrict__ cols,
@@ -175,48 +190,44 @@ __device__ __forceinline__ void gs_warp_sweep(float* xc, int k, int c, const V* 
     gs_fetch(ring[u], __shfl_sync(kFull, ids, u), vals, cols, b, width, k, c, lane);
   for (int s0 = 0; s0 < steps; s0 += 32) {
     const int next = s0 + 32 + lane < steps ? picks[s0 + 32 + lane] : 0;
+#pragma unroll 1
+    for (int g = 0; g < 32; g += kGsDepth) {
 #pragma unroll
-    for (int u = 0; u < 32; ++u) {
-      if (s0 + u >= steps) break;  // warp-uniform
-      gs_step<kShared>(xc, k, ring[u % kGsDepth], vals, cols, width, write_base, beta, lane);
-      const int t = u + kGsDepth;  // the step whose window refills this slot
-      const int r = t < 32 ? __shfl_sync(kFull, ids, t & 31) : __shfl_sync(kFull, next, t & 31);
-      if (s0 + t < steps) gs_fetch(ring[u % kGsDepth], r, vals, cols, b, width, k, c, lane);
+      for (int j = 0; j < kGsDepth; ++j) {
+        const int u = g + j;
+        if (s0 + u >= steps) return;  // warp-uniform: the last step is done
+        gs_step<kShared>(xc, k, ring[j], vals, cols, width, write_base, beta, lane);
+        const int t = u + kGsDepth;  // the step whose window refills this slot
+        const int r = __shfl_sync(kFull, t < 32 ? ids : next, t & 31);
+        if (s0 + t < steps) gs_fetch(ring[j], r, vals, cols, b, width, k, c, lane);
+      }
     }
     ids = next;
   }
 }
 
-// kShared: the shared-memory path, `ct` columns a CTA (blockDim
-// kGsSharedThreads); otherwise the global path, kColsPerBlock columns a
-// CTA.  x is read and written by the same warp across steps: it is not
-// declared __restrict__ const, so its loads are never routed through the
-// read-only (non-coherent) cache.
+// kShared: the shared-memory path, one column a CTA (blockDim
+// kGsSharedThreads: all of them copy, warp 0 sweeps); otherwise the global
+// path, kColsPerBlock columns a CTA.  x is read and written by the same
+// warp across steps: it is not declared __restrict__ const, so its loads
+// are never routed through the read-only (non-coherent) cache.
 template <typename V, typename I, bool kShared>
 __global__ void __launch_bounds__(kGsSharedThreads)
     gs_kernel(const V* __restrict__ vals, const I* __restrict__ cols, const float* __restrict__ b,
               float* x, const int* __restrict__ picks, int width, int n, int k, int steps,
-              int write_base, float beta, int ct) {
+              int write_base, float beta) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if constexpr (kShared) {
     extern __shared__ float xs[];
-    const int c0 = blockIdx.x * ct;
-    const int cn = k - c0 < ct ? k - c0 : ct;
+    const int c = blockIdx.x;
 #pragma unroll 4
-    for (int e = threadIdx.x; e < n * cn; e += blockDim.x) {
-      const int row = e / cn, cc = e - row * cn;
-      xs[cc * n + row] = x[(size_t)row * k + c0 + cc];
-    }
+    for (int row = threadIdx.x; row < n; row += blockDim.x) xs[row] = x[(size_t)row * k + c];
     __syncthreads();
-    if (warp < cn)
-      gs_warp_sweep<true>(xs + warp * n, k, c0 + warp, vals, cols, b, picks, width, steps,
-                          write_base, beta, lane);
+    if (warp == 0)
+      gs_warp_sweep<true>(xs, k, c, vals, cols, b, picks, width, steps, write_base, beta, lane);
     __syncthreads();
 #pragma unroll 4
-    for (int e = threadIdx.x; e < n * cn; e += blockDim.x) {
-      const int row = e / cn, cc = e - row * cn;
-      x[(size_t)row * k + c0 + cc] = xs[cc * n + row];
-    }
+    for (int row = threadIdx.x; row < n; row += blockDim.x) x[(size_t)row * k + c] = xs[row];
   } else {
     const int c = blockIdx.x * kColsPerBlock + warp;
     if (c >= k) return;  // warp-uniform
@@ -257,36 +268,35 @@ inline dim3 grid_for(int k) { return dim3((k + kColsPerBlock - 1) / kColsPerBloc
 
 template <typename V, typename I>
 int launch_gs(const void* vals, const void* cols, const void* b, void* x, const void* picks,
-              int width, int n, int k, int steps, int limit, int write_base, float beta, int ct,
-              void* stream) {
+              int width, int n, int k, int steps, int limit, int write_base, float beta,
+              int shared, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (ct < 0 || ct > kGsSharedThreads / 32) return (int)cudaErrorInvalidValue;
   launch_check(picks, steps, limit, s);
-  if (ct > 0) {
-    const size_t bytes = sizeof(float) * (size_t)n * ct;
+  if (shared) {
+    const size_t bytes = sizeof(float) * (size_t)n;
     const cudaError_t err = cudaFuncSetAttribute(
         gs_kernel<V, I, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    gs_kernel<V, I, true><<<(k + ct - 1) / ct, kGsSharedThreads, bytes, s>>>(
+    gs_kernel<V, I, true><<<k, kGsSharedThreads, bytes, s>>>(
         (const V*)vals, (const I*)cols, (const float*)b, (float*)x, (const int*)picks, width, n,
-        k, steps, write_base, beta, ct);
+        k, steps, write_base, beta);
   } else {
     gs_kernel<V, I, false><<<grid_for(k), 32 * kColsPerBlock, 0, s>>>(
         (const V*)vals, (const I*)cols, (const float*)b, (float*)x, (const int*)picks, width, n,
-        k, steps, write_base, beta, 0);
+        k, steps, write_base, beta);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ct: RHS columns a CTA holds in shared memory, 0 for the global path.
+// shared: nonzero for the shared-memory path, 0 for the global path.
 #define GS_ENTRY(NAME, V, I)                                                                     \
   extern "C" int NAME(const void* vals, const void* cols, const void* b, void* x,               \
                       const void* picks, int width, int n, int k, int steps, int limit,         \
-                      int write_base, float beta, int ct, void* stream) {                       \
+                      int write_base, float beta, int shared, void* stream) {                   \
     return launch_gs<V, I>(vals, cols, b, x, picks, width, n, k, steps, limit, write_base, beta, \
-                           ct, stream);                                                          \
+                           shared, stream);                                                      \
   }
 
 #define RK_ENTRY(NAME, V, I)                                                                     \

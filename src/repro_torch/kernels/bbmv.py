@@ -62,8 +62,8 @@ def bbmv(A_bands, x, *, bands: int, block: int, _col_warps: int = 0):
     """``y = A @ x`` (nb*block, k) f32 on the card.
 
     ``_col_warps`` (1, 2 or 4) sets the column tile to 32 times that many
-    columns, for ``chip_smoke.py``, which times the tile widths against
-    each other; 0 takes the kernel's own rule."""
+    columns, for ``chip_smoke.py``, which holds two tiles of 32 bitwise
+    against one of 64; 0 takes the kernel's own rule."""
     nb = A_bands.shape[0]
     k = x.shape[1]
     y = torch.empty((nb * block, k), dtype=torch.float32, device=x.device)

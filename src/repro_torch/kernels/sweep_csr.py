@@ -5,10 +5,10 @@ Port of ``repro/kernels/sweep_csr.py::sweep_rows_gs`` / ``::sweep_rows_rk``
 updates in one launch, one warp per RHS column.  The kernel design and
 what bounds it are in the source's header note.
 
-The GS sweep has two paths, chosen here by size
-(``gs_columns_per_block``): a CTA holds ``ct`` columns of the iterate in
-shared memory when all its rows fit the opt-in capacity, else x stays in
-global memory.  Both are bitwise equal on the same inputs.
+The GS sweep has two paths, chosen here by size (``gs_fits_shared``): a
+CTA holds one column of the iterate in shared memory when all its rows
+fit the opt-in capacity, else x stays in global memory.  Both are bitwise
+equal on the same inputs.
 
 These functions take tensors already checked by ``kernels/ops.py`` (CUDA,
 contiguous, matching shapes and types, int32 picks) and launch on
@@ -42,25 +42,15 @@ C_ENTRIES = {f"{kernel}_{suffix}": args
              for suffix in _build.SUFFIX.values()}
 C_ENTRIES["sweep_shared_capacity"] = _CAPACITY_ARGS
 
-# RHS columns a CTA of the GS sweep holds in shared memory when they fit.
-# chip_smoke.py times 1, 2 and 3 against each other in turns: on the main
-# path's 16384-pick chunks they are within about 1%, and on short sweeps
-# one is faster, since a CTA copies its columns in and out (PERF.md).
-GS_COLS_PER_BLOCK = 1
 _capacity: dict[int, int] = {}
 
 
-def gs_columns_per_block(rows: int, cols: int, capacity: int,
-                         prefer: int = GS_COLS_PER_BLOCK) -> int:
-    """RHS columns one CTA of the GS sweep holds in shared memory: all
-    ``rows`` rows of the iterate (``write_base + r`` may be any of them) at
-    4 bytes each, at most ``prefer`` and ``cols`` columns, within
-    ``capacity`` bytes.  0 chooses the global-memory path (not even one
-    column fits, or there is no column)."""
-    if cols <= 0:
-        return 0
-    fit = capacity // (4 * rows) if rows > 0 else cols
-    return max(0, min(prefer, cols, fit))
+def gs_fits_shared(rows: int, capacity: int) -> bool:
+    """Whether the GS sweep takes its shared-memory path: one column of the
+    iterate, all ``rows`` rows (``write_base + r`` may be any of them) at 4
+    bytes each, within ``capacity`` bytes.  Otherwise x stays in global
+    memory."""
+    return 4 * rows <= capacity
 
 
 def shared_capacity(device: torch.device) -> int:
@@ -79,25 +69,25 @@ def shared_capacity(device: torch.device) -> int:
 
 
 def sweep_rows_gs(vals, cols, b, x, picks, *, beta: float, write_base: int,
-                  limit: int, _cols_per_block: int | None = None):
+                  limit: int, _shared: bool | None = None):
     """GS sweep on the card.  Returns a new x (``x`` cloned, then updated
     in place by the kernel).
 
-    ``_cols_per_block`` overrides the size rule (0: the global path; ct:
-    ct columns a CTA in shared memory), for ``chip_smoke.py``, which holds
-    the two paths against each other."""
+    ``_shared`` overrides the size rule (True: the shared-memory path,
+    False: the global path), for ``chip_smoke.py``, which holds the two
+    paths against each other."""
     n, k = x.shape
     width = vals.shape[1]
     out = x.clone()
     if picks.numel() == 0 or k == 0:
         return out
-    ct = (gs_columns_per_block(n, k, shared_capacity(x.device))
-          if _cols_per_block is None else int(_cols_per_block))
+    shared = (gs_fits_shared(n, shared_capacity(x.device))
+              if _shared is None else bool(_shared))
     fn = _build.c_entry("sweep_csr", "sweep_rows_gs", vals.dtype, cols.dtype,
                         _GS_ARGS)
     err = fn(vals.data_ptr(), cols.data_ptr(), b.data_ptr(), out.data_ptr(),
              picks.data_ptr(), width, n, k, picks.numel(), int(limit),
-             int(write_base), float(beta), ct,
+             int(write_base), float(beta), int(shared),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(err, "sweep_rows_gs")
     LAUNCHES["sweep_rows_gs"] += 1

@@ -3,8 +3,8 @@ C interface, on the CPU (nothing is built; the kernels run only on the
 card, where chip_smoke.py holds both GS paths against the plain version
 and against each other).
 
-- ``sweep_csr.gs_columns_per_block``: the size rule that picks the
-  shared-memory path (ct RHS columns a CTA) or the global path (0).
+- ``sweep_csr.gs_fits_shared``: the size rule that picks the
+  shared-memory path (one RHS column a CTA) or the global path.
 - ``sweep_csr.sweep_rows_gs`` / ``bbmv.bbmv``: what they hand the C entry
   (a stand-in records the call), so the argument lists, the iterate's row
   count and the private overrides are checked without a card.
@@ -27,33 +27,19 @@ CAP = 232448          # the opt-in shared memory of an H100 CTA, bytes
 N_MAIN = 16384        # the main path's iterate rows
 
 
-@pytest.mark.parametrize("rows, cols, capacity, prefer, want", [
-    # n * ct * 4 bytes against the capacity, at the boundary
-    (CAP // 4, 51, CAP, 1, 1),
-    (CAP // 4 + 1, 51, CAP, 1, 0),
-    (CAP // 8, 51, CAP, 3, 2),
-    (CAP // 8 + 1, 51, CAP, 3, 1),
-    # one to three columns a CTA at the main path's n
-    (N_MAIN, 51, CAP, 1, 1),
-    (N_MAIN, 51, CAP, 2, 2),
-    (N_MAIN, 51, CAP, 3, 3),
-    (N_MAIN, 51, CAP, 4, 3),          # four columns no longer fit
-    (N_MAIN, 2, CAP, 3, 2),           # never more than the columns there are
-    (131072, 4, CAP, 1, 0),           # the global path's check shape
-    # no column, or no row
-    (N_MAIN, 0, CAP, 1, 0),
-    (0, 0, CAP, 1, 0),
-    (0, 5, CAP, 3, 3),
-    (N_MAIN, 51, 0, 1, 0),
+@pytest.mark.parametrize("rows, capacity, want", [
+    # n * 4 bytes against the capacity, at the boundary
+    (CAP // 4, CAP, True),
+    (CAP // 4 + 1, CAP, False),
+    (N_MAIN, CAP, True),              # the main path's n
+    (131072, CAP, False),             # the global path's check shape
+    (0, CAP, True),                   # no row
+    (N_MAIN, 0, False),               # no shared memory
+    (1, 4, True),
+    (1, 3, False),
 ])
-def test_gs_columns_per_block(rows, cols, capacity, prefer, want):
-    assert sweep_csr.gs_columns_per_block(rows, cols, capacity,
-                                          prefer=prefer) == want
-
-
-def test_gs_columns_per_block_default_prefers_the_measured_count():
-    assert sweep_csr.gs_columns_per_block(N_MAIN, 51, CAP) == \
-        sweep_csr.GS_COLS_PER_BLOCK
+def test_gs_fits_shared(rows, capacity, want):
+    assert sweep_csr.gs_fits_shared(rows, capacity) is want
 
 
 def test_gs_rule_holds_every_row_of_x_with_write_base():
@@ -62,8 +48,8 @@ def test_gs_rule_holds_every_row_of_x_with_write_base():
     m, n = 100, 250
     write_base = n - m
     capacity = 4 * (m + 10)           # room for m rows but not n
-    assert sweep_csr.gs_columns_per_block(m, 1, capacity) == 1
-    assert sweep_csr.gs_columns_per_block(n, 1, capacity) == 0
+    assert sweep_csr.gs_fits_shared(m, capacity)
+    assert not sweep_csr.gs_fits_shared(n, capacity)
     assert write_base + m == n
 
 
@@ -110,24 +96,24 @@ def _gs_inputs(m, n, k, width=5):
     return vals, cols, b, x, picks
 
 
-@pytest.mark.parametrize("n, override, want_ct", [
-    (N_MAIN, None, sweep_csr.GS_COLS_PER_BLOCK),
+@pytest.mark.parametrize("n, override, want_shared", [
+    (N_MAIN, None, 1),
     (CAP // 4 + 1, None, 0),
-    (N_MAIN, 0, 0),
-    (N_MAIN, 3, 3),
+    (N_MAIN, False, 0),
+    (CAP // 4 + 1, True, 1),
 ])
-def test_gs_launcher_passes_the_path(fake_launch, n, override, want_ct):
+def test_gs_launcher_passes_the_path(fake_launch, n, override, want_shared):
     m, k = 40, 3
     vals, cols, b, x, picks = _gs_inputs(m, n, k)
-    kw = {} if override is None else {"_cols_per_block": override}
+    kw = {} if override is None else {"_shared": override}
     sweep_csr.sweep_rows_gs(vals, cols, b, x, picks, beta=0.5,
                             write_base=n - m, limit=m, **kw)
     entry = fake_launch["sweep_rows_gs"]
     (args,) = entry.calls
     assert len(args) == len(entry.argtypes) == len(sweep_csr._GS_ARGS)
-    width, rows, kk, steps, limit, wb, beta, ct = args[5:13]
-    assert (width, rows, kk, steps, limit, wb, beta, ct) == (
-        5, n, k, 7, m, n - m, 0.5, want_ct)
+    width, rows, kk, steps, limit, wb, beta, shared = args[5:13]
+    assert (width, rows, kk, steps, limit, wb, beta, shared) == (
+        5, n, k, 7, m, n - m, 0.5, want_shared)
     assert sweep_csr.LAUNCHES["sweep_rows_gs"] == 1
 
 
