@@ -19,11 +19,14 @@ distributed Kaczmarz engine (``solve`` with
 ``Schedule(rounds=, local_steps=)`` and a process group; one local-phase
 launch per round) at P = 1 in this process on the LSQ problem (CSR) and
 the banded problem, and at P = 4 in four spawned processes that share the
-card through a gloo group.  It holds the GS sweep's two paths (the
-iterate in shared memory, or in global memory when it is too tall) against
-the plain version and against each other, and the block-banded matvec at
-ragged shapes and at both column-tile widths.  It checks what comes out,
-shows from the
+card through a gloo group.  It holds the two paths of the GS and of both
+Kaczmarz sweeps (the iterate in shared memory, or in global memory when it
+is too tall) against the plain version and against each other (the
+Kaczmarz sweeps also on rows wider than the main path's), the
+column sums of the records against theirs, and the block-banded matvec at
+ragged shapes and at both column-tile widths.  It solves column 0 of each
+path alone and holds it bitwise to column 0 of the k = 51 solve.  It
+checks what comes out, shows from the
 launch counters (set to 0 just before each path and read just after) that
 each path ran its kernels and nothing else, and times each kernel beside
 its plain version, its roofline bound and, where one exists, a PyTorch
@@ -71,8 +74,24 @@ SPMV_RTOL, SPMV_ATOL = 1e-5, 1e-6   # |y_k - y_p| <= rtol * (|A| |x|) + atol
 # random walk of ~sqrt(640) * 2^-24 ~ 1.5e-6 relative to |A| |x|.
 BBMV_RTOL, BBMV_ATOL = 2e-5, 1e-6
 # The GS sweep's global-memory path: synthetic row windows over an iterate
-# too tall for shared memory (kernels/sweep_csr.py::gs_fits_shared).
+# too tall for shared memory (kernels/sweep_csr.py::fits_shared).
 GS_GLOBAL_N, GS_GLOBAL_WIDTH, GS_GLOBAL_K = 131072, 51, 4
+# The RK sweeps' global-memory path: synthetic row windows over an iterate
+# too tall for shared memory at one carry and at two
+# (kernels/sweep_csr.py::fits_shared).
+RK_GLOBAL_M, RK_GLOBAL_N, RK_GLOBAL_WIDTH, RK_GLOBAL_K = 32768, 65536, 16, 4
+# The RK step's parts that the main path's 16-slot rows never reach: the
+# butterfly's first level (width > 16), the out-of-line tails past 32
+# slots (window_tail, rk_tail_scatter) and their padding slots, on
+# synthetic ragged windows of these widths over the main path's n = LSQ_N,
+# on both paths (csrc/sweep_csr.cu).
+RK_WIDE_M, RK_WIDE_WIDTHS, RK_WIDE_K = 8192, (24, 51), 4
+# The column sums of the records: |kernel - plain| <= COLSUM_RTOL * sum |t|
+# per column.  Two orders of one f32 sum: were each a single chain of n
+# adds, their roundings would drift like a random walk of sqrt(n) * 2^-24
+# ~ 1.1e-5 relative at n = 32768; both add in short runs and a tree.
+COLSUM_RTOL = 2e-5
+COLSUM_SHAPES = ((SPD_N, K), (LSQ_M, K), (1000, 3), (1, 1))
 # bbmv at ragged shapes: block 20 is not a multiple of the kernel's 64-row
 # warp tile (its tile rows are still 16-byte aligned); block 18 rows are
 # not, so its tiles and x are staged element by element.
@@ -213,7 +232,8 @@ def main() -> int:
         from repro_torch.core.distributed import _sync_bytes_per_round
         from repro_torch.core.engine import (draw_picks, record_metrics,
                                              sample_rows, scheduled_tau)
-        from repro_torch.core.operators import CsrOp, DenseOp
+        from repro_torch.core.operators import (DENSE_MATVEC_COLUMNS,
+                                                CsrOp, DenseOp)
         from repro_torch.kernels import (_build, ops, ref, ref_banded,
                                          sweep_csr)
         from repro_torch.kernels import bbmv as _bbmv
@@ -557,10 +577,10 @@ def main() -> int:
     # of their own leave the other checks' inputs as they were.
     gen_gs = torch.Generator(dev).manual_seed(SEED + 15)
     capacity = sweep_csr.shared_capacity(dev)
-    check(sweep_csr.gs_fits_shared(SPD_N, capacity),
+    check(sweep_csr.fits_shared(SPD_N, capacity),
           f"sweep_rows_gs n={SPD_N} takes the shared-memory path: one column "
           f"a CTA within the {capacity} bytes a CTA may opt into")
-    check(not sweep_csr.gs_fits_shared(GS_GLOBAL_N, capacity),
+    check(not sweep_csr.fits_shared(GS_GLOBAL_N, capacity),
           f"sweep_rows_gs n={GS_GLOBAL_N} takes the global path")
     rows_g = torch.arange(GS_GLOBAL_N, device=dev)
     cols_g = torch.randint(0, GS_GLOBAL_N, (GS_GLOBAL_N, GS_GLOBAL_WIDTH),
@@ -597,6 +617,189 @@ def main() -> int:
           f"sweep_rows_gs main-path chunk ({SPD_N} picks, k={K}): the global "
           "path and the shared-memory path agree bitwise")
     del runs
+
+    # The two RK sweeps' paths, as the GS sweep's: the main path's n =
+    # LSQ_N takes the shared-memory path at one carry and at two (so the
+    # checks above ran it); the global path runs on synthetic windows over
+    # an iterate too tall for it (distinct columns per row, the first of
+    # weight 1), and the two are held bitwise equal on a main-path chunk of
+    # each kernel.
+    for carries in (1, 2):
+        check(sweep_csr.fits_shared(LSQ_N, capacity, carries),
+              f"RK sweeps with {carries} carr{'y' if carries == 1 else 'ies'}"
+              f" at n={LSQ_N} take the shared-memory path")
+        check(not sweep_csr.fits_shared(RK_GLOBAL_N, capacity, carries),
+              f"RK sweeps with {carries} carr{'y' if carries == 1 else 'ies'}"
+              f" at n={RK_GLOBAL_N} take the global path")
+    gen_rk = torch.Generator(dev).manual_seed(SEED + 17)
+    offs = torch.randperm(RK_GLOBAL_N - 1, generator=gen_rk,
+                          device=dev)[:RK_GLOBAL_WIDTH - 1] + 1
+    base = torch.randint(0, RK_GLOBAL_N, (RK_GLOBAL_M, 1), generator=gen_rk,
+                         device=dev)
+    cols_r = torch.cat([base, (base + offs[None, :]) % RK_GLOBAL_N],
+                       1).to(torch.int32)
+    vals_r = torch.randn((RK_GLOBAL_M, RK_GLOBAL_WIDTH), generator=gen_rk,
+                         device=dev) * 0.3
+    vals_r[:, 0] = 1.0
+    b_r = torch.randn((RK_GLOBAL_M, RK_GLOBAL_K), generator=gen_rk,
+                      device=dev)
+    x_r = torch.randn((RK_GLOBAL_N, RK_GLOBAL_K), generator=gen_rk,
+                      device=dev)
+    d_r = torch.randn((RK_GLOBAL_N, RK_GLOBAL_K), generator=gen_rk,
+                      device=dev)
+    picks_r = torch.randint(0, RK_GLOBAL_M, (PREFIX,), generator=gen_rk,
+                            device=dev)
+    for vdt in (torch.float32, torch.bfloat16):
+        tag = "f32/i32" if vdt == torch.float32 else "bf16/i32"
+        v = vals_r.to(vdt)
+        rn_r = (v.float() ** 2).sum(1)
+        shape = (f"{RK_GLOBAL_M}x{RK_GLOBAL_N} width={RK_GLOBAL_WIDTH} "
+                 f"k={RK_GLOBAL_K} {PREFIX} picks")
+        got = ops.sweep_rows_rk(v, cols_r, b_r, rn_r, x_r, picks_r, beta=0.9)
+        want = ref.sweep_rows_rk_ref(v, cols_r, b_r, rn_r, x_r, picks_r,
+                                     beta=0.9)
+        torch.cuda.synchronize()
+        e = rel(got, want)
+        check(e <= SWEEP_RTOL, f"sweep_rows_rk global path {tag} {shape}: "
+              f"rel err {e:.3e} <= {SWEEP_RTOL:g}")
+        if vdt == torch.float32:
+            errs["sweep_rows_rk_global"] = float((got - want).abs().max())
+        got = ops.sweep_rows_rk_delta(v, cols_r, b_r, rn_r, x_r, d_r, picks_r,
+                                      beta=0.9)
+        want = ref.sweep_rows_rk_delta_ref(v, cols_r, b_r, rn_r, x_r, d_r,
+                                           picks_r, beta=0.9)
+        torch.cuda.synchronize()
+        e = max(rel(got[0], want[0]), rel(got[1], want[1]))
+        check(e <= SWEEP_RTOL, f"sweep_rows_rk_delta global path {tag} "
+              f"{shape}: rel err of x and d {e:.3e} <= {SWEEP_RTOL:g}")
+        if vdt == torch.float32:
+            errs["sweep_rows_rk_delta_global"] = max(
+                float((g - w).abs().max()) for g, w in zip(got, want))
+        zero = torch.zeros_like(x_r)
+        zx, zd = ops.sweep_rows_rk_delta(v, cols_r, b_r, rn_r, zero, zero,
+                                         picks_r, beta=0.9)
+        check(torch.equal(zx, zd) and bool(zx.any()),
+              f"sweep_rows_rk_delta global path {tag}: from x = d = 0 the "
+              "two carries end bitwise equal")
+    op = ops_by[("lsq", None)]
+    vals, cols = op.padded_rows()
+    rn = op.row_norms_sq()
+    chunk_rk = draw_picks(op, "rk", LSQ_M, generator=gen_rk).to(torch.int32)
+    runs = [sweep_csr.sweep_rows_rk(vals, cols, lsq.b, rn, x_lsq, chunk_rk,
+                                    beta=1.0, limit=LSQ_M, _shared=shared)
+            for shared in (False, True)]
+    torch.cuda.synchronize()
+    check(torch.equal(*runs),
+          f"sweep_rows_rk main-path chunk ({LSQ_M} picks, k={K}): the global "
+          "path and the shared-memory path agree bitwise")
+    runs = [sweep_csr.sweep_rows_rk_delta(
+        vals, cols, lsq.b, rn, x_lsq, torch.zeros_like(x_lsq), chunk_rk,
+        beta=1.0, limit=LSQ_M, _shared=shared) for shared in (False, True)]
+    torch.cuda.synchronize()
+    check(torch.equal(runs[0][0], runs[1][0])
+          and torch.equal(runs[0][1], runs[1][1]),
+          f"sweep_rows_rk_delta P = 1 round ({LSQ_M} picks, k={K}): the "
+          "global path and the shared-memory path agree bitwise on x and d")
+    del runs
+
+    # Both RK sweeps on rows wider than the main path's 16 slots: ragged
+    # windows (1 to `width` real slots, distinct columns, the rest padding:
+    # value 0, column 0) over n = LSQ_N, which fits shared memory at both
+    # carries, so each kernel runs on both paths, each held against the
+    # plain version and the two held bitwise equal; from x = d = 0 the two
+    # carries end bitwise equal on each path.
+    gen_w = torch.Generator(dev).manual_seed(SEED + 19)
+    for width in RK_WIDE_WIDTHS:
+        offs = torch.randperm(LSQ_N - 1, generator=gen_w,
+                              device=dev)[:width - 1] + 1
+        base = torch.randint(0, LSQ_N, (RK_WIDE_M, 1), generator=gen_w,
+                             device=dev)
+        cols_w = torch.cat([base, (base + offs[None, :]) % LSQ_N], 1)
+        vals_w = torch.randn((RK_WIDE_M, width), generator=gen_w,
+                             device=dev) * 0.3
+        vals_w[:, 0] = 1.0
+        real = torch.randint(1, width + 1, (RK_WIDE_M, 1), generator=gen_w,
+                             device=dev)
+        pad = torch.arange(width, device=dev)[None, :] >= real
+        vals_w[pad] = 0.0
+        cols_w[pad] = 0
+        b_w = torch.randn((RK_WIDE_M, RK_WIDE_K), generator=gen_w,
+                          device=dev)
+        x_w = torch.randn((LSQ_N, RK_WIDE_K), generator=gen_w, device=dev)
+        d_w = torch.randn((LSQ_N, RK_WIDE_K), generator=gen_w, device=dev)
+        picks_w = torch.randint(0, RK_WIDE_M, (PREFIX,), generator=gen_w,
+                                device=dev).to(torch.int32)
+        for vdt, idt, tag in ((torch.float32, torch.int32, "f32/i32"),
+                              (torch.bfloat16, torch.int16, "bf16/i16")):
+            v, c = vals_w.to(vdt), cols_w.to(idt)
+            rn_w = (v.float() ** 2).sum(1)
+            shape = (f"width={width} {RK_WIDE_M}x{LSQ_N} k={RK_WIDE_K} "
+                     f"{PREFIX} picks")
+            want = ref.sweep_rows_rk_ref(v, c, b_w, rn_w, x_w, picks_w,
+                                         beta=0.9)
+            runs = {}
+            for shared, path in ((True, "shared-memory"), (False, "global")):
+                got = sweep_csr.sweep_rows_rk(v, c, b_w, rn_w, x_w, picks_w,
+                                              beta=0.9, limit=RK_WIDE_M,
+                                              _shared=shared)
+                torch.cuda.synchronize()
+                runs[shared] = got
+                e = rel(got, want)
+                check(e <= SWEEP_RTOL, f"sweep_rows_rk {path} path {tag} "
+                      f"{shape}: rel err {e:.3e} <= {SWEEP_RTOL:g}")
+            check(torch.equal(runs[True], runs[False]),
+                  f"sweep_rows_rk {tag} {shape}: the two paths agree bitwise")
+            want = ref.sweep_rows_rk_delta_ref(v, c, b_w, rn_w, x_w, d_w,
+                                               picks_w, beta=0.9)
+            zero = torch.zeros_like(x_w)
+            runs = {}
+            for shared, path in ((True, "shared-memory"), (False, "global")):
+                got = sweep_csr.sweep_rows_rk_delta(
+                    v, c, b_w, rn_w, x_w, d_w, picks_w, beta=0.9,
+                    limit=RK_WIDE_M, _shared=shared)
+                zx, zd = sweep_csr.sweep_rows_rk_delta(
+                    v, c, b_w, rn_w, zero, zero, picks_w, beta=0.9,
+                    limit=RK_WIDE_M, _shared=shared)
+                torch.cuda.synchronize()
+                runs[shared] = got
+                e = max(rel(got[0], want[0]), rel(got[1], want[1]))
+                check(e <= SWEEP_RTOL, f"sweep_rows_rk_delta {path} path "
+                      f"{tag} {shape}: rel err of x and d {e:.3e} <= "
+                      f"{SWEEP_RTOL:g}")
+                check(torch.equal(zx, zd) and bool(zx.any()),
+                      f"sweep_rows_rk_delta {path} path {tag} width={width}:"
+                      " from x = d = 0 the two carries end bitwise equal")
+            check(torch.equal(runs[True][0], runs[False][0])
+                  and torch.equal(runs[True][1], runs[False][1]),
+                  f"sweep_rows_rk_delta {tag} {shape}: the two paths agree "
+                  "bitwise on x and d")
+        del runs
+
+    # The column sums of the records: the kernel against its plain version
+    # (each column reduced on its own contiguous copy) at the records'
+    # shapes and at ragged ones, and column 0 at k = K bitwise equal to
+    # k = 1.  The plain version on the card is torch.sum, the record sum
+    # before this kernel: whether its column 0 depends on k is printed.
+    for rows, kk in COLSUM_SHAPES:
+        t = torch.randn((rows, kk), generator=gen_rk, device=dev) ** 2
+        got, want = ops.colsum(t), ref.colsum_ref(t)
+        one = ops.colsum(t[:, :1].contiguous())
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(bool((err <= COLSUM_RTOL * t.abs().sum(0)).all()),
+              f"colsum n={rows} k={kk}: max|kernel - plain| = "
+              f"{float(err.max()):.3e} within {COLSUM_RTOL:g}*sum|t|")
+        check(torch.equal(one[0], got[0]),
+              f"colsum n={rows}: column 0 at k={kk} bitwise equals k=1")
+        if (rows, kk) == (SPD_N, K):
+            errs["colsum"] = float(err.max())
+            plain_one = ref.colsum_ref(t[:, :1].contiguous())
+            print(f"  torch.sum on the card (the plain version; the record "
+                  f"sums before the colsum kernel), n={rows}: column 0 at "
+                  f"k={kk} and at k=1 "
+                  + ("bitwise equal" if torch.equal(plain_one[0], want[0])
+                     else f"differ by {float((plain_one[0] - want[0]).abs()):.3e}"),
+                  flush=True)
 
     # The ELL and block-banded kernels at the main paths' shapes.  The
     # banded sweep runs the first chunk (one sweep, nb picks) of a
@@ -795,7 +998,22 @@ def main() -> int:
                                  x_band[:, :1].contiguous(), dense_picks, **kw)
         check(torch.equal(one[:, 0], got[:, 0]),
               f"block_gs_sweep {tag}: column 0 at k={K} bitwise equals k=1")
-    del dense_ops
+    # The dense record matvec: torch.matmul picks its kernel by shape (at
+    # one column a matrix-vector product), so DenseOp.matvec multiplies in
+    # column groups of one width.  Whether one plain product's column 0
+    # depends on k is printed; the grouped one's must not.
+    dense = dense_ops[None]
+    x1 = x_band[:, :1].contiguous()
+    y_full, y_one = dense.A @ x_band, dense.A @ x1
+    print(f"  torch.matmul with the dense A, one product: column 0 at k={K} "
+          "and at k=1 " + ("bitwise equal" if torch.equal(y_one[:, 0], y_full[:, 0])
+                           else "differ by up to "
+                           f"{float((y_one[:, 0] - y_full[:, 0]).abs().max()):.3e}"),
+          flush=True)
+    check(torch.equal(dense.matvec(x1)[:, 0], dense.matvec(x_band)[:, 0]),
+          f"DenseOp.matvec (column groups of {DENSE_MATVEC_COLUMNS}): column 0 "
+          f"at k={K} bitwise equals k=1")
+    del dense_ops, dense, y_full, y_one
 
     # ELL windows of a matrix full of magnitude ties: the card's stable
     # sort orders them as the CPU's (which the tests hold against JAX)
@@ -848,13 +1066,15 @@ def main() -> int:
     print("== main path", flush=True)
     # Each path runs with the launch counters set to 0 just before it and
     # read just after: it must have launched exactly its kernels, once per
-    # record chunk (the sweep) and once per matvec of record_metrics (two
-    # per GS record: A e and A x; one per RK record: A x), and nothing
-    # else, so no chunk or record fell back to a plain version.
+    # record chunk (the sweep), once per matvec of record_metrics (two per
+    # GS record: A e and A x; one per RK record: A x) and twice per record
+    # for its column sums (err_sq and resid), and nothing else, so no
+    # chunk or record fell back to a plain version.
     launches = dict.fromkeys(ops.KERNELS, 0)
     walls = {}
 
     def drive(tag, expect, run):
+        torch.cuda.synchronize()    # no earlier work in this path's time
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         res = run()
@@ -873,28 +1093,32 @@ def main() -> int:
         return Schedule(num_iters=sweeps * n, record_every=n)
 
     gs = drive(f"CSR GS, {GS_SWEEPS} sweeps",
-               dict(sweep_rows_gs=GS_SWEEPS, spmv_csr_sliced=2 * GS_SWEEPS),
+               dict(sweep_rows_gs=GS_SWEEPS, spmv_csr_sliced=2 * GS_SWEEPS,
+                    colsum=2 * GS_SWEEPS),
                lambda: solve(spd, format="csr",
                              generator=torch.Generator(dev).manual_seed(1),
                              schedule=gs_sched(GS_SWEEPS, SPD_N)))
     rk = drive(f"CSR RK, {RK_SWEEPS} sweeps",
-               dict(sweep_rows_rk=RK_SWEEPS, spmv_csr_sliced=RK_SWEEPS),
+               dict(sweep_rows_rk=RK_SWEEPS, spmv_csr_sliced=RK_SWEEPS,
+                    colsum=2 * RK_SWEEPS),
                lambda: solve(lsq, format="csr",
                              generator=torch.Generator(dev).manual_seed(2),
                              schedule=gs_sched(RK_SWEEPS, LSQ_M)))
     rkh = drive("CSR RK on the empty-panel design, 1 sweep",
-                dict(sweep_rows_rk=1, spmv_csr_sliced_prefetch=1),
+                dict(sweep_rows_rk=1, spmv_csr_sliced_prefetch=1, colsum=2),
                 lambda: solve(lsq_holes, format="csr",
                               generator=torch.Generator(dev).manual_seed(3),
                               schedule=gs_sched(1, LSQ_M)))
     eg = drive(f"ELL GS (width {ell_width}), {ELL_SWEEPS} sweeps",
-               dict(sweep_rows_gs=ELL_SWEEPS, spmv_ell=2 * ELL_SWEEPS),
+               dict(sweep_rows_gs=ELL_SWEEPS, spmv_ell=2 * ELL_SWEEPS,
+                    colsum=2 * ELL_SWEEPS),
                lambda: solve(spd, format="ell",
                              generator=torch.Generator(dev).manual_seed(1),
                              schedule=gs_sched(ELL_SWEEPS, SPD_N)))
     bg = drive(f"banded GS (block {BLOCK}, bands {BANDS}), {BANDED_SWEEPS} "
                "sweeps", dict(banded_gs_sweep=BANDED_SWEEPS,
-                              bbmv=2 * BANDED_SWEEPS),
+                              bbmv=2 * BANDED_SWEEPS,
+                              colsum=2 * BANDED_SWEEPS),
                lambda: solve(banded, format="banded", block=BLOCK,
                              bands=BANDS,
                              generator=torch.Generator(dev).manual_seed(5),
@@ -903,10 +1127,37 @@ def main() -> int:
     # block-row picks: one block_gs_sweep launch per record chunk; its
     # record matvecs are torch.matmul (no kernel, as in the reference).
     dg = drive(f"dense block GS (gs_block {BLOCK}), {DENSE_SWEEPS} sweeps",
-               dict(block_gs_sweep=DENSE_SWEEPS),
+               dict(block_gs_sweep=DENSE_SWEEPS, colsum=2 * DENSE_SWEEPS),
                lambda: solve(banded, format="dense", gs_block=BLOCK,
                              generator=torch.Generator(dev).manual_seed(5),
                              schedule=gs_sched(DENSE_SWEEPS, nb)))
+
+    # Column 0 of each path solved alone (k = 1) on the same picks: the
+    # same generator seed, and no stream depends on k.  Its iterate, err_sq
+    # and resid must be bitwise column 0 of the k = K solve (DESIGN.md §8).
+    def alone(prob, **kw):
+        return solve(prob._replace(b=prob.b[:, :1].contiguous(),
+                                   x_star=prob.x_star[:, :1].contiguous()),
+                     **kw)
+
+    solos = {
+        "CSR GS": (gs, alone(
+            spd, format="csr", generator=torch.Generator(dev).manual_seed(1),
+            schedule=gs_sched(GS_SWEEPS, SPD_N))),
+        "CSR RK": (rk, alone(
+            lsq, format="csr", generator=torch.Generator(dev).manual_seed(2),
+            schedule=gs_sched(RK_SWEEPS, LSQ_M))),
+        "ELL GS": (eg, alone(
+            spd, format="ell", generator=torch.Generator(dev).manual_seed(1),
+            schedule=gs_sched(ELL_SWEEPS, SPD_N))),
+        "banded GS": (bg, alone(
+            banded, format="banded", block=BLOCK, bands=BANDS,
+            generator=torch.Generator(dev).manual_seed(5),
+            schedule=gs_sched(BANDED_SWEEPS, nb))),
+        "dense block GS": (dg, alone(
+            banded, format="dense", gs_block=BLOCK,
+            generator=torch.Generator(dev).manual_seed(5),
+            schedule=gs_sched(DENSE_SWEEPS, nb)))}
 
     # The CSR matvec seam: each variant launches exactly its kernel, on the
     # CSR GS operator and on the empty-panel design.
@@ -985,7 +1236,7 @@ def main() -> int:
     # variant it names (the first sweep of the CSR GS path's picks).
     tg = drive(f"CSR GS, 1 sweep, under the autotuner's table (matvec "
                f"{choice!r}, rows_per_panel {rpp})",
-               {"sweep_rows_gs": 1, variant_kernel[choice]: 2},
+               {"sweep_rows_gs": 1, variant_kernel[choice]: 2, "colsum": 2},
                lambda: solve_under(
                    tuned, spd, format="csr",
                    generator=torch.Generator(dev).manual_seed(1),
@@ -996,28 +1247,31 @@ def main() -> int:
                  {"segsum_prefetch": 0.0})
     rks = drive("CSR RK on the empty-panel design, 1 sweep, under a table "
                 "naming 'segsum_prefetch'",
-                dict(sweep_rows_rk=1, spmv_csr_prefetch=1),
+                dict(sweep_rows_rk=1, spmv_csr_prefetch=1, colsum=2),
                 lambda: solve_under(
                     steer, lsq_holes, format="csr",
                     generator=torch.Generator(dev).manual_seed(3),
                     schedule=gs_sched(1, LSQ_M)))
     # The distributed engine at P = 1 on a world-size-1 gloo group: one
-    # local-phase launch and one matvec per round (the residual of the
-    # rank's rows), and no collective.
+    # local-phase launch, one matvec (the residual of the rank's rows) and
+    # two column sums (resid and err_sq) per round, and no collective.
     with tempfile.TemporaryDirectory() as store, \
             process_group("gloo", store) as pg:
         drk = drive(f"distributed RK on CSR, P = 1, {DIST_RK_ROUNDS} rounds "
                     f"of {LSQ_M} local steps",
                     dict(sweep_rows_rk_delta=DIST_RK_ROUNDS,
-                         spmv_ell=DIST_RK_ROUNDS),
+                         spmv_ell=DIST_RK_ROUNDS, colsum=2 * DIST_RK_ROUNDS),
                     lambda: solve(lsq, format="csr", group=pg, sync="psum",
                                   seed=SEED + 11,
                                   schedule=Schedule(rounds=DIST_RK_ROUNDS,
                                                     local_steps=LSQ_M)))
+        solos["distributed RK on CSR, P = 1"] = (drk, alone(
+            lsq, format="csr", group=pg, sync="psum", seed=SEED + 11,
+            schedule=Schedule(rounds=DIST_RK_ROUNDS, local_steps=LSQ_M)))
         dbk = drive(f"distributed banded RK, P = 1, {BANDED_RK_ROUNDS} "
                     f"rounds of {nb} local steps",
                     dict(banded_rk_sweep=BANDED_RK_ROUNDS,
-                         bbmv=BANDED_RK_ROUNDS),
+                         bbmv=BANDED_RK_ROUNDS, colsum=2 * BANDED_RK_ROUNDS),
                     lambda: solve(banded, format="banded", action="rk",
                                   block=BLOCK, bands=BANDS,
                                   beta=BANDED_RK_BETA, group=pg,
@@ -1026,6 +1280,18 @@ def main() -> int:
                                                     local_steps=nb)))
     print(f"  launches on the main paths, all together: {launches}",
           flush=True)
+    fields = ("x", "err_sq", "resid")
+    for tag, (full, one) in solos.items():
+        print(f"  {tag}: column 0 at k={K} against the solo k=1 solve: "
+              + ", ".join(f"{f} " + ("bitwise equal" if torch.equal(
+                  getattr(full, f)[:, :1], getattr(one, f)) else "differs")
+                  for f in fields), flush=True)
+    for tag, (full, one) in solos.items():
+        check(all(torch.equal(getattr(full, f)[:, :1], getattr(one, f))
+                  for f in fields),
+              f"{tag}: column 0 at k={K} bitwise equals the solo k=1 solve "
+              "(x, err_sq and resid)")
+    del solos
     for name in ops.KERNELS:
         check(launches[name] > 0, f"main paths launched {name} "
               f"({launches[name]} times)")
@@ -1131,9 +1397,10 @@ def main() -> int:
     for kind, prob, rounds, steps, expect in (
             ("sparse_rk", lsq, P4_SPARSE_ROUNDS, P4_SPARSE_STEPS,
              dict(sweep_rows_rk_delta=P4_SPARSE_ROUNDS,
-                  spmv_ell=P4_SPARSE_ROUNDS)),
+                  spmv_ell=P4_SPARSE_ROUNDS, colsum=2 * P4_SPARSE_ROUNDS)),
             ("banded_rk", banded, P4_BANDED_ROUNDS, P4_BANDED_STEPS,
-             dict(banded_rk_sweep=P4_BANDED_ROUNDS, bbmv=P4_BANDED_ROUNDS))):
+             dict(banded_rk_sweep=P4_BANDED_ROUNDS, bbmv=P4_BANDED_ROUNDS,
+                  colsum=2 * P4_BANDED_ROUNDS))):
         tag = f"P = {P4} {kind}, {rounds} rounds of {steps} local steps"
         res = p4[kind]
         print(f"  {tag}: wall s per rank "
@@ -1212,9 +1479,17 @@ def main() -> int:
         gs_picks, lambda z: 2 * z * K + 3 * K, 0,
         "src/repro/kernels/sweep_csr.py:135", global_ms=global_ms,
         global_max_abs_err=errs["sweep_rows_gs_global"])
+    # The RK sweeps likewise: "ms" is the shared-memory path the wrapper
+    # takes at n = LSQ_N, "global_ms" the global path on the same inputs.
     op_l = ops_by[("lsq", None)]
     vals_l, cols_l = op_l.padded_rows()
     rn_l = op_l.row_norms_sq()
+    global_ms = cuda_ms(functools.partial(
+        sweep_csr.sweep_rows_rk, vals_l, cols_l, lsq.b, rn_l, x_lsq,
+        rk_picks[None].to(torch.int32), beta=1.0, limit=LSQ_M,
+        _shared=False), 10)
+    print(f"  sweep_rows_rk global path: {global_ms:.4f} ms for {PREFIX} picks "
+          f"({global_ms * 1e3 / PREFIX:.4f} us/pick)", flush=True)
     sweep_entry(
         "sweep_rows_rk", op_l,
         lambda: ops.sweep_rows_rk(vals_l, cols_l, lsq.b, rn_l, x_lsq,
@@ -1222,18 +1497,25 @@ def main() -> int:
         lambda: ref.sweep_rows_rk_ref(vals_l, cols_l, lsq.b, rn_l, x_lsq,
                                       rk_picks[None]),
         rk_picks[None], lambda z: 5 * z * K + 3 * K, 4,
-        "src/repro/kernels/sweep_csr.py:181")
+        "src/repro/kernels/sweep_csr.py:181", global_ms=global_ms,
+        global_max_abs_err=errs["sweep_rows_rk_global"])
 
     # The two-carry sweep on rank 0's slab at P = 4 (its rows are the
     # operator's first, so op_l.row_nnz indexes them): bytes and flops as
     # sweep_rows_rk's, plus the delta carry in and out and its add.
     args, picks = rk_args["sweep_rows_rk_delta"]
+    global_ms = cuda_ms(functools.partial(
+        sweep_csr.sweep_rows_rk_delta, *args, x_lsq, d_lsq,
+        picks.to(torch.int32), beta=1.0, limit=slab, _shared=False), 10)
+    print(f"  sweep_rows_rk_delta global path: {global_ms:.4f} ms for {PREFIX} "
+          f"picks ({global_ms * 1e3 / PREFIX:.4f} us/pick)", flush=True)
     sweep_entry(
         "sweep_rows_rk_delta", op_l,
         lambda: ops.sweep_rows_rk_delta(*args, x_lsq, d_lsq, picks),
         lambda: ref.sweep_rows_rk_delta_ref(*args, x_lsq, d_lsq, picks),
         picks, lambda z: 6 * z * K + 3 * K, 4,
-        "src/repro/kernels/sweep_csr.py:258", carries=2)
+        "src/repro/kernels/sweep_csr.py:258", carries=2, global_ms=global_ms,
+        global_max_abs_err=errs["sweep_rows_rk_delta_global"])
     full_delta = sample_rows(rn_l, LSQ_M, generator=gen)
     vals_f, cols_f = op_l.padded_rows()
     zero_l = torch.zeros_like(x_lsq)
@@ -1241,6 +1523,17 @@ def main() -> int:
         vals_f, cols_f, lsq.b, rn_l, x_lsq, zero_l, full_delta), 5)
     print(f"  sweep_rows_rk_delta, one P = 1 main-path round ({LSQ_M} "
           f"picks): {ms:.4f} ms ({ms * 1e3 / LSQ_M:.4f} us/pick)", flush=True)
+    # the delta sweep's paths on that round in turns (shared, global,
+    # global, shared)
+    full_delta32 = full_delta.to(torch.int32)
+    turns = [(shared, cuda_ms(functools.partial(
+        sweep_csr.sweep_rows_rk_delta, vals_f, cols_f, lsq.b, rn_l, x_lsq,
+        zero_l, full_delta32, beta=1.0, limit=LSQ_M, _shared=shared), 5))
+        for shared in (True, False, False, True)]
+    print("  sweep_rows_rk_delta P = 1 round by path, in turns (ms, us/pick): "
+          + "; ".join(f"{'shared' if shared else 'global'} "
+                      f"{t:.4f} ({t * 1e3 / LSQ_M:.4f})" for shared, t in turns),
+          flush=True)
 
     # whole record chunks as the main path launches them
     full_gs = draw_picks(op, "gs", SPD_N, generator=gen)
@@ -1281,6 +1574,15 @@ def main() -> int:
                                            full_rk), 5)
     print(f"  sweep_rows_rk, one main-path chunk ({LSQ_M} picks): {ms:.4f} ms "
           f"({ms * 1e3 / LSQ_M:.4f} us/pick)", flush=True)
+    full_rk32 = full_rk.to(torch.int32)
+    turns = [(shared, cuda_ms(functools.partial(
+        sweep_csr.sweep_rows_rk, vals_l, cols_l, lsq.b, rn_l, x_lsq,
+        full_rk32, beta=1.0, limit=LSQ_M, _shared=shared), 5))
+        for shared in (True, False, False, True)]
+    print("  sweep_rows_rk main-path chunk by path, in turns (ms, us/pick): "
+          + "; ".join(f"{'shared' if shared else 'global'} "
+                      f"{t:.4f} ({t * 1e3 / LSQ_M:.4f})" for shared, t in turns),
+          flush=True)
 
     def library_spmv(op, x):
         """torch.sparse CSR product on the same nonzeros (the yardstick;
@@ -1502,6 +1804,18 @@ def main() -> int:
     print(f"  dense path: one record (two torch.matmul with the dense A) "
           f"{rec_ms:.4f} ms; {dg.iters.numel()} records per solve",
           flush=True)
+    # The same record of one column: its products still go through one
+    # DENSE_MATVEC_COLUMNS-wide GEMM each (the column groups), next to one
+    # plain matrix-vector product A @ x[:, :1], which a record without the
+    # groups would make twice.
+    x1 = x_band[:, :1].contiguous()
+    rec1_ms = cuda_ms(lambda: record_metrics(
+        DenseOp(A_dense), banded.b[:, :1].contiguous(), x1,
+        banded.x_star[:, :1].contiguous(), norm="A"), 5)
+    gemv_ms = cuda_ms(lambda: A_dense @ x1, 5)
+    print(f"  dense path: one record at k=1 {rec1_ms:.4f} ms (k={K}: "
+          f"{rec_ms:.4f} ms); one A @ x[:, :1] without the column groups "
+          f"{gemv_ms:.4f} ms", flush=True)
     print(f"  block_gs_sweep, one main-path chunk ({nb} picks, n={SPD_N}, "
           f"block={BLOCK}): {ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick); plain "
           f"{plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); no library call "
@@ -1525,6 +1839,48 @@ def main() -> int:
                             errs[("spmv_csr_prefetch", None, "holes")],
                             "src/repro/kernels/spmv_csr.py:187"))
     spmv_entry("segsum_prefetch", ops_by[("spd", None)], x_spd)
+
+    # colsum: the record sums of the CSR GS path's shape (n = SPD_N rows, K
+    # columns).  Bytes: t once, the sums once; operations: one add per
+    # element.  The library call is torch.sum over the rows, which the
+    # plain version also reaches through a transposed copy.
+    t_rec = x_spd * x_spd
+    ms = cuda_ms(functools.partial(ops.colsum, t_rec), 50)
+    plain_ms = cuda_ms(functools.partial(ref.colsum_ref, t_rec), 50)
+    lib_ms = cuda_ms(functools.partial(torch.sum, t_rec, 0), 50)
+    b_ms, by = bound_ms(t_rec.numel() * 4 + K * 4, float(t_rec.numel()))
+    print(f"  colsum n={SPD_N} k={K}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"torch.sum {lib_ms:.4f} ms; bound {b_ms:.5f} ms ({by})", flush=True)
+    # The same calls replayed from one CUDA graph of 50: the card's time
+    # a call with the host's launch work taken out, which says whether the
+    # kernels or the launch from Python set the times above.
+    for tag, fn in (("colsum", functools.partial(ops.colsum, t_rec)),
+                    ("torch.sum", functools.partial(torch.sum, t_rec, 0))):
+        try:
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(graph):
+                for _ in range(50):
+                    fn()
+            g_ms = cuda_ms(graph.replay, 5) / 50
+            print(f"  {tag} n={SPD_N} k={K} from a CUDA graph: {g_ms:.4f} "
+                  "ms a call", flush=True)
+            del graph
+        except RuntimeError as e:
+            print(f"  {tag} from a CUDA graph: not measured ({e})",
+                  flush=True)
+    lines.append(dict(name="colsum", route="cuda",
+                      source="src/repro_torch/csrc/colsum.cu",
+                      replaces="none: a kernel of the port's own (the record "
+                      "sums of src/repro/core/engine.py:322-326 are jnp, no "
+                      "Pallas kernel)",
+                      launches=launches["colsum"], max_abs_err=errs["colsum"],
+                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=lib_ms))
 
     left = live_children()
     check(not left, "no process this run started is still running "

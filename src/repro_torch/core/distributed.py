@@ -44,8 +44,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.core.engine import (ParallelSolveResult, _colsum,
-                                     sample_rows, scheduled_tau)
+from repro_torch.core.engine import (ParallelSolveResult, sample_rows,
+                                     scheduled_tau)
 from repro_torch.core.operators import CsrOp, EllOp
 from repro_torch.kernels import ops
 
@@ -199,15 +199,15 @@ def _sparse_rk(op, b, x0, xs, *, group, rank, num_workers, rounds,
 
     def metrics(x):
         r = b_sh - ops.spmv_ell(vals_sh, cols_sh, x, n_cols=n)
-        parts = [_colsum(r * r)]
+        parts = [ops.colsum(r * r)]
         if xs is not None and cs is not None:
             e = x[cols_own] - xs[cols_own]
-            parts.append(_colsum(e * e))
+            parts.append(ops.colsum(e * e))
         tot = _all_reduce(torch.stack(parts), group, num_workers)
         if xs is None:
             err = _nan_err(x)
         elif cs is None:
-            err = _colsum((x - xs) * (x - xs))
+            err = ops.colsum((x - xs) * (x - xs))
         else:
             err = tot[1]
         return err, torch.sqrt(tot[0])
@@ -283,8 +283,8 @@ def _banded_rk(op, b, x0, xs, *, group, rank, num_workers, rounds,
             delta = dpad[halo:halo + n]
             x = x + (_all_reduce(delta, group, num_workers) - delta)
         res = b_sh - op.matvec(x)[row0:row0 + slab]
-        resids.append(torch.sqrt(_all_reduce(_colsum(res * res), group,
+        resids.append(torch.sqrt(_all_reduce(ops.colsum(res * res), group,
                                              num_workers)))
         errs.append(_nan_err(x) if xs is None
-                    else _colsum((x - xs) * (x - xs)))
+                    else ops.colsum((x - xs) * (x - xs)))
     return x, errs, resids

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.operators import BlockBandedOp, DenseOp, as_operator
+from repro_torch.kernels import ops
 from repro_torch.tune import runtime as tune_runtime
 
 
@@ -157,13 +158,6 @@ class Schedule(NamedTuple):
         return self
 
 
-def _colsum(t: torch.Tensor) -> torch.Tensor:
-    """Sum over rows per column, each column reduced on its own contiguous
-    copy, so a column's result does not depend on how many columns ride
-    along (zero-padded RHS columns leave the others bitwise unchanged)."""
-    return t.T.contiguous().sum(1)
-
-
 def record_metrics(op, b, x, x_star, *, norm: str):
     """(err_sq, resid) per RHS column.
 
@@ -173,7 +167,10 @@ def record_metrics(op, b, x, x_star, *, norm: str):
 
     A·x goes through ``op.matvec``: the CSR matvec kernel on the card, its
     plain version on the CPU.  (The reference calls its jnp segment sum,
-    ``matvec_ref``, here; the two compute the same function.)
+    ``matvec_ref``, here; the two compute the same function.)  The column
+    sums go through ``ops.colsum``, whose order does not depend on the
+    column count, so a zero-padded RHS column leaves the others' records
+    bitwise unchanged.
     """
     if norm not in ("A", "euclid"):
         raise ValueError(norm)
@@ -182,9 +179,9 @@ def record_metrics(op, b, x, x_star, *, norm: str):
                          device=x.device)
     else:
         e = x - x_star
-        err = _colsum(e * (op.matvec(e) if norm == "A" else e))
+        err = ops.colsum(e * (op.matvec(e) if norm == "A" else e))
     r = b - op.matvec(x)
-    return err, torch.sqrt(_colsum(r * r))
+    return err, torch.sqrt(ops.colsum(r * r))
 
 
 def resolve_record_every(num_iters: int, record_every: int) -> int:

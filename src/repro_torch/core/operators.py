@@ -62,10 +62,20 @@ def _index_dtype(values_dtype, n: int):
     return torch.int32
 
 
+# Columns of one dense matvec product.  cuBLAS picks its kernel, and with
+# it the order of every sum, by shape (at one column a matrix-vector
+# product), so x is cut into groups of this width, the last zero-padded:
+# every column goes through one GEMM shape, and a column's A·x does not
+# depend on how many columns ride along.  64 holds the paper's 51 RHS in
+# one group.
+DENSE_MATVEC_COLUMNS = 64
+
+
 class DenseOp:
     """Dense row-major operator — square SPD or rectangular (m, n).  Its
-    matvec is plain ``torch.matmul`` (the reference leaves it to XLA too);
-    its block-GS sweep is the ``block_gs_sweep`` kernel."""
+    matvec is plain ``torch.matmul`` in fixed column groups (the reference
+    leaves it to XLA); its block-GS sweep is the ``block_gs_sweep``
+    kernel."""
 
     def __init__(self, A: torch.Tensor):
         self.A = A
@@ -79,7 +89,16 @@ class DenseOp:
         return self.A.device
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self.A.to(x.dtype) @ x
+        A = self.A.to(x.dtype)
+        G = DENSE_MATVEC_COLUMNS
+        k = x.shape[1]
+        if k == 0:
+            return A @ x
+        groups = -(-k // G)
+        xp = torch.nn.functional.pad(x, (0, groups * G - k))
+        y = torch.cat([A @ xp[:, g * G:(g + 1) * G].contiguous()
+                       for g in range(groups)], 1)
+        return y[:, :k].contiguous()
 
     def row_norms_sq(self) -> torch.Tensor:
         """Per-row ||A_i||² — always f32."""

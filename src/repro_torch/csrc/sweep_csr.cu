@@ -18,7 +18,7 @@
 // (__fsub_rn / __fmul_rn / __fadd_rn: no contraction to an FMA).  So both
 // carries of the delta sweep see bitwise the same contributions in the
 // same order (from x = d = 0 the two outputs are bitwise equal), and the
-// two GS paths below are bitwise equal.
+// two paths of each sweep below are bitwise equal.
 //
 // What bounds them.  Each step reads what the previous step wrote, so a
 // column is one chain of `steps` dependent steps.  The bytes a step needs
@@ -62,13 +62,42 @@
 //      bitwise equal.  The launcher (kernels/sweep_csr.py) chooses the
 //      path by size; it is not a fallback: both run on the card.
 //
-// RK.  The iterate stays in global memory; at the main-path sizes it is
-// L2-resident.  Padding slots (value 0, column 0;
-// operators.CsrOp.padded_rows) are a race for a parallel RK scatter:
-// several lanes would update x[0, c] at once.  The RK scatter therefore
-// skips slots whose value is 0, which adds the same exact zero the
-// sequential Pallas scatter adds.  Real columns of one row are distinct, so
-// the remaining lane writes never collide.
+// RK.  A step is the same kind of chain, with a longer tail: the gather,
+// the fmaf, the butterfly (four levels when a row has at most 16 slots),
+// g = (b - dot) / rn (IEEE division, as the plain version divides),
+// (beta * v) * g and the scatter-add.  The design is the
+// GS design above, point for point:
+//  (a) Everything that does not depend on x is loaded ahead.  Lane l
+//      holds the ids of picks s0 + l and s0 + 32 + l (loaded two batches
+//      ahead) and b[r, c] and rn[r] of pick s0 + l (one batch ahead); a
+//      step takes its own by __shfl_sync, and every lane computes g, so
+//      no shuffle sits between the division and the scatter.  A register
+//      ring holds the next kRkDepth picks' first kRkSlots * 32 window
+//      slots (value and column); slots past that (rows wider than 32) go
+//      through the out-of-line tails in the same slot order.  The scatter
+//      adds to the x value the gather read: no step writes a real slot's
+//      column between the two (the real columns of a row are distinct, and
+//      one warp owns the column), so the update costs no second load.  The
+//      delta sweep loads d with the gathers (no step reads d, so nothing
+//      waits on that load).  Depth 32 was faster than 8 and 16, and this
+//      ring (two registers a pick) faster than one that also held the row,
+//      b and rn of each pick (five a pick; it spilled) (PERF.md).
+//  (b) Shared-memory path: a CTA owns one RHS column and copies x[0:n, c]
+//      (and d[0:n, c]) into dynamic shared memory, sweeps there, and writes
+//      them back.  The launcher takes it when 4 n bytes per carry fit the
+//      opt-in capacity (kernels/sweep_csr.py::fits_shared; the
+//      main-path LSQ has n = 4096: 16 KB, 32 KB with d).
+//  (c) Global path, for n above that: the same warp code with x (and d)
+//      in global memory, kColsPerBlock columns a CTA.
+//  (d) Both paths run the same step function, slot order, butterfly and
+//      explicitly rounded arithmetic, so on the same inputs they are
+//      bitwise equal; a column's steps never read another column, so
+//      column 0 at k = 51 is bitwise column 0 at k = 1.
+// Padding slots (value 0, column 0; operators.CsrOp.padded_rows) are a race
+// for a parallel RK scatter: several lanes would update x[0, c] at once.
+// The RK scatter therefore skips slots whose value is 0, which adds the same
+// exact zero the sequential Pallas scatter adds.  Real columns of one row
+// are distinct, so the remaining lane writes never collide.
 //
 // Pick ids are checked on the device (0 <= r < limit) with assert(), as
 // PyTorch's indexing kernels check theirs, by a small kernel launched just
@@ -80,22 +109,13 @@
 // PERF.md).
 //
 // Each C entry launches on the caller's stream and returns
-// cudaGetLastError() of the launch (for the GS shared-memory path, first
-// the error of cudaFuncSetAttribute, which opts into the shared memory).
+// cudaGetLastError() of the launch (for a shared-memory path, first the
+// error of cudaFuncSetAttribute, which opts into the shared memory).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kColsPerBlock = 4;  // warps (RHS columns) per block
-
-template <typename V, typename I>
-__device__ __forceinline__ float window_dot(const V* vr, const I* cr, const float* x, int width,
-                                            int k, int c, int lane) {
-  float acc = 0.f;
-  for (int w = lane; w < width; w += 32)
-    acc = fmaf(to_f32(vr[w]), x[(size_t)(int)cr[w] * k + c], acc);
-  return warp_sum(acc);
-}
 
 constexpr int kGsDepth = 32;          // picks whose windows are fetched ahead
 static_assert(32 % kGsDepth == 0, "the ring depth divides the 32 ids a warp loads");
@@ -138,15 +158,16 @@ __device__ __forceinline__ float& x_at(float* xc, int row, int k) {
   }
 }
 
-// The slots of a row window past the first kGsSlots * 32, in the step's
-// slot order.  Kept out of line: inlined into every step of the unrolled
-// loop, this rarely taken code made the loop too large for the
+// The slots of a row window from kFrom on, in the step's slot order, added
+// to a lane's dot.  Kept out of line: inlined into every step of the
+// unrolled loop, this rarely taken code made the loop too large for the
 // instruction cache, and every step paid for the misses (PERF.md).
-template <bool kShared, typename V, typename I>
-__device__ __noinline__ float gs_tail(float* xc, int k, int r, const V* __restrict__ vals,
-                                      const I* __restrict__ cols, int width, int lane, float acc) {
+template <int kFrom, bool kShared, typename V, typename I>
+__device__ __noinline__ float window_tail(float* xc, int k, int r, const V* __restrict__ vals,
+                                          const I* __restrict__ cols, int width, int lane,
+                                          float acc) {
   const size_t base = (size_t)r * width;
-  for (int s = lane + 32 * kGsSlots; s < width; s += 32)
+  for (int s = lane + kFrom; s < width; s += 32)
     acc = fmaf(to_f32(vals[base + s]), x_at<kShared>(xc, (int)cols[base + s], k), acc);
   return acc;
 }
@@ -165,7 +186,8 @@ __device__ __forceinline__ void gs_step(float* xc, int k, const GsWindow& w,
 #pragma unroll
   for (int q = 0; q < kGsSlots; ++q)
     if (lane + 32 * q < width) acc = fmaf(w.v[q], x_at<kShared>(xc, w.col[q], k), acc);
-  if (width > 32 * kGsSlots) acc = gs_tail<kShared>(xc, k, w.r, vals, cols, width, lane, acc);
+  if (width > 32 * kGsSlots)
+    acc = window_tail<32 * kGsSlots, kShared>(xc, k, w.r, vals, cols, width, lane, acc);
   const float dot = warp_sum(acc);
   if (lane == 0) xr = __fadd_rn(old, __fmul_rn(beta, __fsub_rn(w.b, dot)));
   __syncwarp();
@@ -235,32 +257,177 @@ __global__ void __launch_bounds__(kGsSharedThreads)
   }
 }
 
-// kDelta: also add every contribution to the delta carry d (which no step
-// reads).  Without it d is not touched.
-template <typename V, typename I, bool kDelta>
-__global__ void __launch_bounds__(32 * kColsPerBlock)
-    rk_kernel(const V* __restrict__ vals, const I* __restrict__ cols, const float* __restrict__ b,
-              const float* __restrict__ rn, float* x, float* d, const int* __restrict__ picks,
-              int width, int k, int steps, float beta) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kColsPerBlock + (threadIdx.x >> 5);
-  if (c >= k) return;  // warp-uniform
-  for (int s = 0; s < steps; ++s) {
-    const int r = picks[s];
-    const V* vr = vals + (size_t)r * width;
-    const I* cr = cols + (size_t)r * width;
-    const float dot = window_dot(vr, cr, x, width, k, c, lane);
-    const float g = (b[(size_t)r * k + c] - dot) / rn[r];
-    for (int w = lane; w < width; w += 32) {
-      const float v = to_f32(vr[w]);
-      if (v != 0.f) {
-        const size_t j = (size_t)(int)cr[w] * k + c;
-        const float contrib = __fmul_rn(__fmul_rn(beta, v), g);
-        x[j] = __fadd_rn(x[j], contrib);
-        if constexpr (kDelta) d[j] = __fadd_rn(d[j], contrib);
+constexpr int kRkDepth = 32;          // picks whose windows are fetched ahead
+static_assert(32 % kRkDepth == 0, "the ring depth divides the 32 ids a warp loads");
+constexpr int kRkSlots = 1;           // window slots a lane holds per pick
+constexpr int kRkSharedThreads = 256; // CTA of the shared-memory path
+
+// The lane's first kRkSlots slots of a pick's row window: what an RK step
+// gathers and scatters through, fetched kRkDepth picks ahead.
+struct RkWindow {
+  float v[kRkSlots];
+  int col[kRkSlots];
+};
+
+template <typename V, typename I>
+__device__ __forceinline__ void rk_fetch(RkWindow& w, int r, const V* __restrict__ vals,
+                                         const I* __restrict__ cols, int width, int lane) {
+  const size_t base = (size_t)r * width;
+#pragma unroll
+  for (int q = 0; q < kRkSlots; ++q) {
+    const int s = lane + 32 * q;
+    w.v[q] = s < width ? to_f32(vals[base + s]) : 0.f;
+    w.col[q] = s < width ? (int)cols[base + s] : 0;
+  }
+}
+
+// The scatter of the slots from 32 * kRkSlots on (out of line, as
+// window_tail): x (and d) are read again here, in the same slot order.
+template <bool kShared, bool kDelta, typename V, typename I>
+__device__ __noinline__ void rk_tail_scatter(float* xc, float* dc, int k, int r,
+                                             const V* __restrict__ vals,
+                                             const I* __restrict__ cols, int width, float beta,
+                                             float g, int lane) {
+  const size_t base = (size_t)r * width;
+  for (int s = lane + 32 * kRkSlots; s < width; s += 32) {
+    const float v = to_f32(vals[base + s]);
+    if (v != 0.f) {
+      const int j = (int)cols[base + s];
+      const float contrib = __fmul_rn(__fmul_rn(beta, v), g);
+      if constexpr (kDelta) {
+        float& dj = x_at<kShared>(dc, j, k);
+        dj = __fadd_rn(dj, contrib);
+      }
+      float& xj = x_at<kShared>(xc, j, k);
+      xj = __fadd_rn(xj, contrib);
+    }
+  }
+}
+
+// One RK step of pick r on column xc (and dc), with b[r, c] and rn[r]:
+// the dependent chain.  Padding slots (s >= width: value 0, column 0) read
+// row 0 and add exact zeros to the dot, as the plain version's padded
+// window does; the scatter skips them.
+template <bool kShared, bool kDelta, typename V, typename I>
+__device__ __forceinline__ void rk_step(float* xc, float* dc, int k, const RkWindow& w, int r,
+                                        float br, float rnr, const V* __restrict__ vals,
+                                        const I* __restrict__ cols, int width, float beta,
+                                        int lane) {
+  float xg[kRkSlots], dg[kRkSlots];
+#pragma unroll
+  for (int q = 0; q < kRkSlots; ++q) {
+    if constexpr (kDelta) dg[q] = x_at<kShared>(dc, w.col[q], k);
+    xg[q] = x_at<kShared>(xc, w.col[q], k);
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < kRkSlots; ++q)
+    if (lane + 32 * q < width) acc = fmaf(w.v[q], xg[q], acc);
+  if (width > 32 * kRkSlots)
+    acc = window_tail<32 * kRkSlots, kShared>(xc, k, r, vals, cols, width, lane, acc);
+  // At most 16 slots (the main path's rows): lanes 16-31 hold exact zeros,
+  // which the butterfly's first level would add (v + 0 is v, up to the
+  // sign of a zero), so it is skipped and lanes 0-15 get the sum one
+  // shuffle level sooner (4% off a main-path chunk, PERF.md).  Lanes
+  // 16-31 then hold no slot, so no scatter reads their g.
+  float dot = acc;
+  if (width > 16) dot += __shfl_xor_sync(kFull, dot, 16);
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
+  const float g = __fdiv_rn(__fsub_rn(br, dot), rnr);
+#pragma unroll
+  for (int q = 0; q < kRkSlots; ++q) {
+    if (w.v[q] != 0.f) {
+      const float contrib = __fmul_rn(__fmul_rn(beta, w.v[q]), g);
+      x_at<kShared>(xc, w.col[q], k) = __fadd_rn(xg[q], contrib);
+      if constexpr (kDelta) x_at<kShared>(dc, w.col[q], k) = __fadd_rn(dg[q], contrib);
+    }
+  }
+  if (width > 32 * kRkSlots)
+    rk_tail_scatter<kShared, kDelta>(xc, dc, k, r, vals, cols, width, beta, g, lane);
+  __syncwarp();
+}
+
+// The whole sweep of one warp on its column c, unrolled by the ring depth
+// and no further (as gs_warp_sweep).  Lane l holds the ids of picks s0 + l
+// (ids) and s0 + 32 + l (next), and b[r, c] and rn[r] of the batch's picks
+// (bq, rq; a step takes its own by shuffle): a batch's ids are loaded two
+// batches ahead and its b and rn one batch ahead, so no step waits on a
+// load that does not depend on x.
+template <bool kShared, bool kDelta, typename V, typename I>
+__device__ __forceinline__ void rk_warp_sweep(float* xc, float* dc, int k, int c,
+                                              const V* __restrict__ vals,
+                                              const I* __restrict__ cols,
+                                              const float* __restrict__ b,
+                                              const float* __restrict__ rn,
+                                              const int* __restrict__ picks, int width, int steps,
+                                              float beta, int lane) {
+  RkWindow ring[kRkDepth];
+  // Past the last step the ids are 0: row 0 exists whenever there is a step.
+  int ids = lane < steps ? picks[lane] : 0;
+  int next = 32 + lane < steps ? picks[32 + lane] : 0;
+  float bq = b[(size_t)ids * k + c], rq = rn[ids];
+#pragma unroll
+  for (int u = 0; u < kRkDepth; ++u)
+    rk_fetch(ring[u], __shfl_sync(kFull, ids, u), vals, cols, width, lane);
+  for (int s0 = 0; s0 < steps; s0 += 32) {
+    const int after = s0 + 64 + lane < steps ? picks[s0 + 64 + lane] : 0;
+    const float bn = b[(size_t)next * k + c], rnn = rn[next];
+#pragma unroll 1
+    for (int g = 0; g < 32; g += kRkDepth) {
+#pragma unroll
+      for (int j = 0; j < kRkDepth; ++j) {
+        const int u = g + j;
+        if (s0 + u >= steps) return;  // warp-uniform: the last step is done
+        rk_step<kShared, kDelta>(xc, dc, k, ring[j], __shfl_sync(kFull, ids, u),
+                                 __shfl_sync(kFull, bq, u), __shfl_sync(kFull, rq, u), vals,
+                                 cols, width, beta, lane);
+        const int t = u + kRkDepth;  // the step whose window refills this slot
+        const int r = __shfl_sync(kFull, t < 32 ? ids : next, t & 31);
+        if (s0 + t < steps) rk_fetch(ring[j], r, vals, cols, width, lane);
       }
     }
-    __syncwarp();
+    ids = next;
+    next = after;
+    bq = bn;
+    rq = rnn;
+  }
+}
+
+// kDelta: also add every contribution to the delta carry d (which no step
+// reads); without it d is not touched.  kShared: the shared-memory path,
+// one column a CTA (blockDim kRkSharedThreads: all of them copy, warp 0
+// sweeps); otherwise the global path, kColsPerBlock columns a CTA.
+template <typename V, typename I, bool kDelta, bool kShared>
+__global__ void __launch_bounds__(kRkSharedThreads)
+    rk_kernel(const V* __restrict__ vals, const I* __restrict__ cols, const float* __restrict__ b,
+              const float* __restrict__ rn, float* x, float* d, const int* __restrict__ picks,
+              int width, int n, int k, int steps, float beta) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (kShared) {
+    extern __shared__ float xs[];
+    float* ds = xs + n;  // the d column, with kDelta
+    const int c = blockIdx.x;
+#pragma unroll 4
+    for (int row = threadIdx.x; row < n; row += blockDim.x) {
+      xs[row] = x[(size_t)row * k + c];
+      if constexpr (kDelta) ds[row] = d[(size_t)row * k + c];
+    }
+    __syncthreads();
+    if (warp == 0)
+      rk_warp_sweep<true, kDelta>(xs, ds, k, c, vals, cols, b, rn, picks, width, steps, beta,
+                                  lane);
+    __syncthreads();
+#pragma unroll 4
+    for (int row = threadIdx.x; row < n; row += blockDim.x) {
+      x[(size_t)row * k + c] = xs[row];
+      if constexpr (kDelta) d[(size_t)row * k + c] = ds[row];
+    }
+  } else {
+    const int c = blockIdx.x * kColsPerBlock + warp;
+    if (c >= k) return;  // warp-uniform
+    rk_warp_sweep<false, kDelta>(x + c, kDelta ? d + c : nullptr, k, c, vals, cols, b, rn, picks,
+                                 width, steps, beta, lane);
   }
 }
 
@@ -288,6 +455,28 @@ int launch_gs(const void* vals, const void* cols, const void* b, void* x, const 
   return (int)cudaGetLastError();
 }
 
+template <typename V, typename I, bool kDelta>
+int launch_rk(const void* vals, const void* cols, const void* b, const void* rn, void* x,
+              void* d, const void* picks, int width, int n, int k, int steps, int limit,
+              float beta, int shared, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  launch_check(picks, steps, limit, s);
+  if (shared) {
+    const size_t bytes = sizeof(float) * (size_t)n * (kDelta ? 2 : 1);
+    const cudaError_t err = cudaFuncSetAttribute(
+        rk_kernel<V, I, kDelta, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    rk_kernel<V, I, kDelta, true><<<k, kRkSharedThreads, bytes, s>>>(
+        (const V*)vals, (const I*)cols, (const float*)b, (const float*)rn, (float*)x, (float*)d,
+        (const int*)picks, width, n, k, steps, beta);
+  } else {
+    rk_kernel<V, I, kDelta, false><<<grid_for(k), 32 * kColsPerBlock, 0, s>>>(
+        (const V*)vals, (const I*)cols, (const float*)b, (const float*)rn, (float*)x, (float*)d,
+        (const int*)picks, width, n, k, steps, beta);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // shared: nonzero for the shared-memory path, 0 for the global path.
@@ -301,24 +490,18 @@ int launch_gs(const void* vals, const void* cols, const void* b, void* x, const 
 
 #define RK_ENTRY(NAME, V, I)                                                                     \
   extern "C" int NAME(const void* vals, const void* cols, const void* b, const void* rn, void* x, \
-                      const void* picks, int width, int k, int steps, int limit, float beta,    \
-                      void* stream) {                                                            \
-    launch_check(picks, steps, limit, (cudaStream_t)stream);                                     \
-    rk_kernel<V, I, false><<<grid_for(k), 32 * kColsPerBlock, 0, (cudaStream_t)stream>>>(       \
-        (const V*)vals, (const I*)cols, (const float*)b, (const float*)rn, (float*)x, nullptr,  \
-        (const int*)picks, width, k, steps, beta);                                               \
-    return (int)cudaGetLastError();                                                              \
+                      const void* picks, int width, int n, int k, int steps, int limit,         \
+                      float beta, int shared, void* stream) {                                    \
+    return launch_rk<V, I, false>(vals, cols, b, rn, x, nullptr, picks, width, n, k, steps,     \
+                                  limit, beta, shared, stream);                                  \
   }
 
 #define RK_DELTA_ENTRY(NAME, V, I)                                                               \
   extern "C" int NAME(const void* vals, const void* cols, const void* b, const void* rn, void* x, \
-                      void* d, const void* picks, int width, int k, int steps, int limit,       \
-                      float beta, void* stream) {                                                \
-    launch_check(picks, steps, limit, (cudaStream_t)stream);                                     \
-    rk_kernel<V, I, true><<<grid_for(k), 32 * kColsPerBlock, 0, (cudaStream_t)stream>>>(        \
-        (const V*)vals, (const I*)cols, (const float*)b, (const float*)rn, (float*)x, (float*)d, \
-        (const int*)picks, width, k, steps, beta);                                               \
-    return (int)cudaGetLastError();                                                              \
+                      void* d, const void* picks, int width, int n, int k, int steps, int limit, \
+                      float beta, int shared, void* stream) {                                    \
+    return launch_rk<V, I, true>(vals, cols, b, rn, x, d, picks, width, n, k, steps, limit,     \
+                                 beta, shared, stream);                                          \
   }
 
 // The opt-in shared memory one CTA may use on `device`, in bytes.

@@ -12,6 +12,8 @@ bbmv      - block-banded matvec (and the band-tile layout helpers)
 banded_gs - fused banded block-GS sweep over a halo-padded window, and the
             masked two-carry banded Kaczmarz sweep of the distributed engine
 block_gs  - dense randomized block-GS sweep (one cooperative launch)
+colsum    - column sums of the records, in an order that does not depend on
+            the column count (a kernel of the port's own)
 
 Use ``repro_torch.kernels.ops`` for the checked wrappers (CPU tensors run
 the plain versions of ``repro_torch.kernels.ref``, CUDA tensors the

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("sweep_csr", "spmv_csr", "spmv_ell", "bbmv", "banded_gs",
-           "block_gs")
+           "block_gs", "colsum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

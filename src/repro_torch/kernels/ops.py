@@ -13,8 +13,9 @@ build or launch raises.
 ``launch_counts()`` reports how often each kernel was launched since the
 last ``reset_launch_counts()``; only the launchers (``sweep_csr.py``,
 ``spmv_csr.py``, ``spmv_ell.py``, ``bbmv.py``, ``banded_gs.py``,
-``block_gs.py``) increment them, where they launch.  The counters are per process: a distributed run
-counts each rank's launches in that rank's process.
+``block_gs.py``, ``colsum.py``) increment them, where they launch.  The
+counters are per process: a distributed run counts each rank's launches
+in that rank's process.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.kernels import (_build, banded_gs, block_gs, ref, ref_banded,
                                  sweep_csr)
+from repro_torch.kernels import colsum as _colsum
 from repro_torch.kernels import spmv_csr as _spmv_csr
 from repro_torch.kernels import bbmv as _bbmv
 from repro_torch.kernels import spmv_ell as _spmv_ell
@@ -29,9 +31,10 @@ from repro_torch.kernels import spmv_ell as _spmv_ell
 KERNELS = ("sweep_rows_gs", "sweep_rows_rk", "spmv_csr_sliced",
            "spmv_csr_sliced_prefetch", "spmv_ell", "bbmv", "banded_gs_sweep",
            "sweep_rows_rk_delta", "banded_rk_sweep", "block_gs_sweep",
-           "spmv_csr", "spmv_csr_prefetch")
+           "spmv_csr", "spmv_csr_prefetch", "colsum")
 _COUNTERS = (sweep_csr.LAUNCHES, _spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
-             _bbmv.LAUNCHES, banded_gs.LAUNCHES, block_gs.LAUNCHES)
+             _bbmv.LAUNCHES, banded_gs.LAUNCHES, block_gs.LAUNCHES,
+             _colsum.LAUNCHES)
 
 # Largest block the band-tile and dense block-GS CUDA kernels take
 # (csrc/banded.cuh, csrc/block_gs.cu: one CTA's staged rows must fit the
@@ -408,3 +411,22 @@ def block_gs_sweep(A, b, x, blocks, *, block: int, beta: float = 1.0):
         return block_gs.block_gs_sweep(A, b, x, blocks, block=block,
                                        beta=beta, limit=n // block)
     return ref.block_gs_sweep_ref(A, b, x, blocks, block=block, beta=beta)
+
+
+def colsum(t):
+    """Column sums ``t.sum(0)`` of an (n, k) f32 tensor, (k,) f32.
+
+    Each column is added in an order fixed by ``n`` alone, so a column's
+    sum does not depend on how many columns ride along: the record sums
+    of a zero-padded RHS column equal the solo column's bitwise.  On the
+    card that is the colsum kernel (``torch.sum`` there picks its order
+    by the output count); on the CPU each column is reduced on its own
+    contiguous copy."""
+    name = "colsum"
+    cuda = _on_cuda(name, t)
+    _check_f32(name, t=t)
+    if t.ndim != 2:
+        raise ValueError(f"{name}: t must be 2-D, got {tuple(t.shape)}")
+    if cuda:
+        return _colsum.colsum(t)
+    return ref.colsum_ref(t)

@@ -190,3 +190,9 @@ def sweep_rows_rk_delta_ref(vals, cols, b, rn, x, d, picks, *,
     for r in picks.tolist():
         rk_step(vals, cols, b, rn, x, r, beta=beta, d=d)
     return x, d
+
+
+def colsum_ref(t):
+    """Column sums of an (n, k) tensor, each column reduced on its own
+    contiguous copy (so a column's sum does not depend on k)."""
+    return t.T.contiguous().sum(1)

@@ -5,10 +5,10 @@ Port of ``repro/kernels/sweep_csr.py::sweep_rows_gs`` / ``::sweep_rows_rk``
 updates in one launch, one warp per RHS column.  The kernel design and
 what bounds it are in the source's header note.
 
-The GS sweep has two paths, chosen here by size (``gs_fits_shared``): a
-CTA holds one column of the iterate in shared memory when all its rows
-fit the opt-in capacity, else x stays in global memory.  Both are bitwise
-equal on the same inputs.
+Each sweep has two paths, chosen here by size (``fits_shared``): a CTA
+holds one column of the iterate (and of the delta carry) in shared memory
+when all its rows fit the opt-in capacity, else they stay in global
+memory.  Both paths are bitwise equal on the same inputs.
 
 These functions take tensors already checked by ``kernels/ops.py`` (CUDA,
 contiguous, matching shapes and types, int32 picks) and launch on
@@ -30,8 +30,8 @@ LAUNCHES = {"sweep_rows_gs": 0, "sweep_rows_rk": 0,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
-_RK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
-_RK_DELTA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_RK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
+_RK_DELTA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 _CAPACITY_ARGS = [_I, ctypes.POINTER(_I)]
 _KERNEL_ARGS = {"sweep_rows_gs": _GS_ARGS, "sweep_rows_rk": _RK_ARGS,
                 "sweep_rows_rk_delta": _RK_DELTA_ARGS}
@@ -45,12 +45,18 @@ C_ENTRIES["sweep_shared_capacity"] = _CAPACITY_ARGS
 _capacity: dict[int, int] = {}
 
 
-def gs_fits_shared(rows: int, capacity: int) -> bool:
-    """Whether the GS sweep takes its shared-memory path: one column of the
-    iterate, all ``rows`` rows (``write_base + r`` may be any of them) at 4
-    bytes each, within ``capacity`` bytes.  Otherwise x stays in global
-    memory."""
-    return 4 * rows <= capacity
+def fits_shared(rows: int, capacity: int, carries: int = 1) -> bool:
+    """Whether a sweep takes its shared-memory path: one column of each of
+    its ``carries`` (1: x; 2: x and the RK delta d), all ``rows`` rows (GS:
+    ``write_base + r`` may be any of them) at 4 bytes each, within
+    ``capacity`` bytes.  Otherwise they stay in global memory."""
+    return 4 * rows * carries <= capacity
+
+
+def _use_shared(x, carries: int, override: bool | None) -> bool:
+    if override is not None:
+        return bool(override)
+    return fits_shared(x.shape[0], shared_capacity(x.device), carries)
 
 
 def shared_capacity(device: torch.device) -> int:
@@ -81,8 +87,7 @@ def sweep_rows_gs(vals, cols, b, x, picks, *, beta: float, write_base: int,
     out = x.clone()
     if picks.numel() == 0 or k == 0:
         return out
-    shared = (gs_fits_shared(n, shared_capacity(x.device))
-              if _shared is None else bool(_shared))
+    shared = _use_shared(x, 1, _shared)
     fn = _build.c_entry("sweep_csr", "sweep_rows_gs", vals.dtype, cols.dtype,
                         _GS_ARGS)
     err = fn(vals.data_ptr(), cols.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -94,19 +99,22 @@ def sweep_rows_gs(vals, cols, b, x, picks, *, beta: float, write_base: int,
     return out
 
 
-def sweep_rows_rk(vals, cols, b, rn, x, picks, *, beta: float, limit: int):
+def sweep_rows_rk(vals, cols, b, rn, x, picks, *, beta: float, limit: int,
+                  _shared: bool | None = None):
     """Kaczmarz sweep on the card.  Returns a new x (``x`` cloned, then
-    updated in place by the kernel)."""
+    updated in place by the kernel).  ``_shared`` overrides the size rule,
+    as in ``sweep_rows_gs``."""
+    n, k = x.shape
     width = vals.shape[1]
-    k = x.shape[1]
     out = x.clone()
     if picks.numel() == 0 or k == 0:
         return out
+    shared = _use_shared(x, 1, _shared)
     fn = _build.c_entry("sweep_csr", "sweep_rows_rk", vals.dtype, cols.dtype,
                         _RK_ARGS)
     err = fn(vals.data_ptr(), cols.data_ptr(), b.data_ptr(), rn.data_ptr(),
-             out.data_ptr(), picks.data_ptr(), width, k, picks.numel(),
-             int(limit), float(beta),
+             out.data_ptr(), picks.data_ptr(), width, n, k, picks.numel(),
+             int(limit), float(beta), int(shared),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(err, "sweep_rows_rk")
     LAUNCHES["sweep_rows_rk"] += 1
@@ -114,19 +122,21 @@ def sweep_rows_rk(vals, cols, b, rn, x, picks, *, beta: float, limit: int):
 
 
 def sweep_rows_rk_delta(vals, cols, b, rn, x, d, picks, *, beta: float,
-                        limit: int):
+                        limit: int, _shared: bool | None = None):
     """Two-carry Kaczmarz sweep on the card.  Returns new ``(x, d)``
-    (both cloned, then updated in place by the kernel)."""
+    (both cloned, then updated in place by the kernel).  ``_shared``
+    overrides the size rule, as in ``sweep_rows_gs``."""
+    n, k = x.shape
     width = vals.shape[1]
-    k = x.shape[1]
     x_out, d_out = x.clone(), d.clone()
     if picks.numel() == 0 or k == 0:
         return x_out, d_out
+    shared = _use_shared(x, 2, _shared)
     fn = _build.c_entry("sweep_csr", "sweep_rows_rk_delta", vals.dtype,
                         cols.dtype, _RK_DELTA_ARGS)
     err = fn(vals.data_ptr(), cols.data_ptr(), b.data_ptr(), rn.data_ptr(),
-             x_out.data_ptr(), d_out.data_ptr(), picks.data_ptr(), width, k,
-             picks.numel(), int(limit), float(beta),
+             x_out.data_ptr(), d_out.data_ptr(), picks.data_ptr(), width, n, k,
+             picks.numel(), int(limit), float(beta), int(shared),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(err, "sweep_rows_rk_delta")
     LAUNCHES["sweep_rows_rk_delta"] += 1

@@ -28,6 +28,7 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import rgs, spd  # noqa: E402
 from repro_torch.core.engine import Schedule, solve  # noqa: E402
+from repro_torch.core.operators import DenseOp  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 
@@ -150,6 +151,51 @@ def test_block_gs_column_independent_bitwise(dtype):
                              blocks, block=block, beta=0.8)
     np.testing.assert_array_equal(one[:, 0].numpy(), five[:, 0].numpy())
     assert not torch.equal(five, x)
+
+
+@pytest.mark.parametrize("k", [1, 5, 64, 65, 130])
+def test_dense_matvec_column_groups(k):
+    """DenseOp.matvec multiplies in column groups of one width, so each
+    column equals the solo column's product at any k (every column goes
+    through one GEMM shape)."""
+    g = torch.Generator().manual_seed(k)
+    n = 96
+    op = DenseOp(torch.randn((n, n), generator=g))
+    x = torch.randn((n, k), generator=g)
+    y = op.matvec(x)
+    assert y.shape == (n, k) and y.is_contiguous()
+    for j in {0, k // 2, k - 1}:
+        np.testing.assert_array_equal(
+            op.matvec(x[:, j:j + 1].contiguous())[:, 0].numpy(),
+            y[:, j].numpy())
+
+
+@pytest.mark.parametrize("k", [1, 64, 130])
+def test_dense_matvec_is_the_product(k):
+    """The grouped product is A @ x within f32 rounding (rtol/atol 1e-5:
+    two summation orders of 96 products)."""
+    g = torch.Generator().manual_seed(k)
+    op = DenseOp(torch.randn((96, 96), generator=g))
+    x = torch.randn((96, k), generator=g)
+    np.testing.assert_allclose(op.matvec(x).numpy(), (op.A @ x).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dense_padded_rhs_column_equals_solo():
+    """A zero-padded RHS column leaves the real column's dense block-GS
+    solve bitwise unchanged: iterate, err_sq and resid."""
+    p1 = spd.block_banded_spd(256, block=64, bands=1, n_rhs=1, seed=3,
+                              device="cpu")
+    p2 = p1._replace(b=torch.cat([p1.b, torch.zeros_like(p1.b)], 1),
+                     x_star=torch.cat([p1.x_star,
+                                       torch.zeros_like(p1.x_star)], 1))
+    kw = dict(format="dense", gs_block=64,
+              schedule=Schedule(num_iters=4 * 4, record_every=4))
+    solo = solve(p1, generator=torch.Generator().manual_seed(2), **kw)
+    both = solve(p2, generator=torch.Generator().manual_seed(2), **kw)
+    for f in ("x", "err_sq", "resid"):
+        np.testing.assert_array_equal(getattr(both, f)[:, :1].numpy(),
+                                      getattr(solo, f).numpy())
 
 
 def test_block_gs_sweep_checks_its_arguments():

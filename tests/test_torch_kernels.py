@@ -27,6 +27,7 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref_banded as ref_ref_banded  # noqa: E402
 from repro_torch.core.operators import BlockBandedOp, CsrOp, EllOp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as port_ref  # noqa: E402
 
 from test_torch_operators import CSR_GRID, CSR_IDS, csr_case, to_np  # noqa: E402
 
@@ -393,4 +394,46 @@ def test_band_and_ell_plain_paths_count_no_launches():
     ell.matvec(x)
     ell.gs_sweep(b, x, torch.tensor([3, 4]))
     ell.rk_sweep(b, ell.row_norms_sq(), x, torch.tensor([3, 4]))
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+# --- column sums of the records --------------------------------------------
+
+@pytest.mark.parametrize("n,k", [(1, 1), (100, 3), (1000, 51), (4096, 7)])
+def test_colsum_matches_reference_record_sum(n, k):
+    """ops.colsum (its plain version here) against the reference's record
+    sum (``jnp.einsum("nk,nk->k", e, e)``), rtol 1e-5: two f32 orders."""
+    e = np.random.default_rng(n + k).standard_normal((n, k)).astype(np.float32)
+    want = np.asarray(jnp.einsum("nk,nk->k", jnp.asarray(e), jnp.asarray(e)))
+    t = torch.from_numpy(e)
+    got = ops.colsum(t * t)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    assert torch.equal(got, ops.colsum((t * t).contiguous()))
+
+
+@pytest.mark.parametrize("n", [1, 7, 100, 4096, 16385])
+@pytest.mark.parametrize("k", [2, 51])
+def test_colsum_plain_column_equals_solo_bitwise(n, k):
+    """The plain version's column j of an (n, k) tensor is the solo
+    (n, 1) sum bitwise: a column's sum does not depend on k."""
+    t = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (n, k)).astype(np.float32))
+    full = ops.colsum(t)
+    assert torch.equal(full, port_ref.colsum_ref(t))
+    for j in (0, k // 2, k - 1):
+        solo = ops.colsum(t[:, j:j + 1].contiguous())
+        assert solo.shape == (1,)
+        assert torch.equal(solo[0], full[j])
+
+
+def test_colsum_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="2-D"):
+        ops.colsum(torch.ones(5))
+    with pytest.raises(TypeError, match="float32"):
+        ops.colsum(torch.ones((5, 2), dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.colsum(torch.ones((2, 5)).T)
+    assert ops.colsum(torch.ones((0, 3))).tolist() == [0.0, 0.0, 0.0]
+    ops.reset_launch_counts()
+    ops.colsum(torch.ones((4, 2)))
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)

@@ -1,12 +1,14 @@
-"""The host side of the GS sweep's two CUDA paths and of the launchers'
-C interface, on the CPU (nothing is built; the kernels run only on the
-card, where chip_smoke.py holds both GS paths against the plain version
-and against each other).
+"""The host side of the sweeps' two CUDA paths and of the launchers' C
+interface, on the CPU (nothing is built; the kernels run only on the card,
+where chip_smoke.py holds both paths of each sweep against the plain
+version and against each other).
 
-- ``sweep_csr.gs_fits_shared``: the size rule that picks the
-  shared-memory path (one RHS column a CTA) or the global path.
-- ``sweep_csr.sweep_rows_gs`` / ``bbmv.bbmv``: what they hand the C entry
-  (a stand-in records the call), so the argument lists, the iterate's row
+- ``sweep_csr.fits_shared``: the size rule that picks the shared-memory
+  path (one RHS column a CTA) or the global path, as the GS sweep calls
+  it (one carry) and as the RK sweeps call it (one or two).
+- ``sweep_csr.sweep_rows_gs`` / ``sweep_rows_rk`` / ``sweep_rows_rk_delta``
+  / ``bbmv.bbmv`` / ``colsum.colsum``: what they hand the C entry (a
+  stand-in records the call), so the argument lists, the iterate's row
   count and the private overrides are checked without a card.
 - Every C entry the launchers load is declared ``extern "C"`` in its
   ``csrc/*.cu`` source with as many parameters as its ctypes list
@@ -21,10 +23,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bbmv as bbmv_mod  # noqa: E402
+from repro_torch.kernels import colsum as colsum_mod  # noqa: E402
 from repro_torch.kernels import sweep_csr  # noqa: E402
 
 CAP = 232448          # the opt-in shared memory of an H100 CTA, bytes
 N_MAIN = 16384        # the main path's iterate rows
+N_LSQ = 4096          # the main-path LSQ's iterate rows (the RK sweeps)
 
 
 @pytest.mark.parametrize("rows, capacity, want", [
@@ -39,7 +43,24 @@ N_MAIN = 16384        # the main path's iterate rows
     (1, 3, False),
 ])
 def test_gs_fits_shared(rows, capacity, want):
-    assert sweep_csr.gs_fits_shared(rows, capacity) is want
+    assert sweep_csr.fits_shared(rows, capacity) is want
+
+
+@pytest.mark.parametrize("rows, capacity, carries, want", [
+    # rows * carries * 4 bytes against the capacity, at the boundary
+    (CAP // 4, CAP, 1, True),
+    (CAP // 4 + 1, CAP, 1, False),
+    (CAP // 8, CAP, 2, True),
+    (CAP // 8 + 1, CAP, 2, False),
+    (N_LSQ, CAP, 1, True),            # the main path's RK sweep
+    (N_LSQ, CAP, 2, True),            # its delta sweep, at P = 1 and 4
+    (65536, CAP, 1, False),           # the global path's check shape
+    (65536, CAP, 2, False),
+    (N_LSQ, 0, 1, False),             # no shared memory
+    (0, 0, 2, True),                  # no row
+])
+def test_rk_fits_shared(rows, capacity, carries, want):
+    assert sweep_csr.fits_shared(rows, capacity, carries) is want
 
 
 def test_gs_rule_holds_every_row_of_x_with_write_base():
@@ -48,8 +69,8 @@ def test_gs_rule_holds_every_row_of_x_with_write_base():
     m, n = 100, 250
     write_base = n - m
     capacity = 4 * (m + 10)           # room for m rows but not n
-    assert sweep_csr.gs_fits_shared(m, capacity)
-    assert not sweep_csr.gs_fits_shared(n, capacity)
+    assert sweep_csr.fits_shared(m, capacity)
+    assert not sweep_csr.fits_shared(n, capacity)
     assert write_base + m == n
 
 
@@ -128,6 +149,89 @@ def test_gs_launcher_without_work_launches_nothing(fake_launch, n, k, steps):
     assert sweep_csr.LAUNCHES["sweep_rows_gs"] == 0
 
 
+def _rk_inputs(m, n, k, width=5):
+    vals = torch.ones((m, width))
+    cols = torch.zeros((m, width), dtype=torch.int32)
+    b = torch.zeros((m, k))
+    rn = torch.ones((m,))
+    x = torch.zeros((n, k))
+    picks = torch.zeros((7,), dtype=torch.int32)
+    return vals, cols, b, rn, x, picks
+
+
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("n, override, want", [
+    (N_LSQ, None, (1, 1)),
+    (CAP // 8 + 1, None, (1, 0)),     # x fits, x and d do not
+    (CAP // 4 + 1, None, (0, 0)),
+    (N_LSQ, False, (0, 0)),
+    (CAP // 4 + 1, True, (1, 1)),
+])
+def test_rk_launchers_pass_the_path(fake_launch, delta, n, override, want):
+    """The RK launchers hand the C entry the iterate's rows and the path:
+    the size rule at one carry (x) or two (x and d), or the override."""
+    m, k = 40, 3
+    vals, cols, b, rn, x, picks = _rk_inputs(m, n, k)
+    kw = {} if override is None else {"_shared": override}
+    if delta:
+        xo, do = sweep_csr.sweep_rows_rk_delta(vals, cols, b, rn, x, x, picks,
+                                               beta=0.5, limit=m, **kw)
+        assert xo.shape == do.shape == x.shape
+        name, argtypes, first = ("sweep_rows_rk_delta",
+                                 sweep_csr._RK_DELTA_ARGS, 7)
+    else:
+        assert sweep_csr.sweep_rows_rk(vals, cols, b, rn, x, picks, beta=0.5,
+                                       limit=m, **kw).shape == x.shape
+        name, argtypes, first = "sweep_rows_rk", sweep_csr._RK_ARGS, 6
+    entry = fake_launch[name]
+    (args,) = entry.calls
+    assert len(args) == len(entry.argtypes) == len(argtypes)
+    assert args[first:first + 7] == (5, n, k, 7, m, 0.5, want[delta])
+    assert sweep_csr.LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("n, want", [
+    (0, 1), (1, 1), (colsum_mod.ROWS_PER_SLICE, 1),
+    (colsum_mod.ROWS_PER_SLICE + 1, 2), (16384, 64)])
+def test_colsum_slices_depend_on_rows_alone(n, want):
+    """The first kernel's row runs, and so the order of a column's adds,
+    are fixed by n: the same for any k."""
+    assert colsum_mod.slices(n) == want
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_rk_launchers_without_work_launch_nothing(fake_launch, delta):
+    vals, cols, b, rn, x, _ = _rk_inputs(10, 10, 3)
+    picks = torch.zeros((0,), dtype=torch.int32)
+    if delta:
+        sweep_csr.sweep_rows_rk_delta(vals, cols, b, rn, x, x, picks,
+                                      beta=1.0, limit=10)
+    else:
+        sweep_csr.sweep_rows_rk(vals, cols, b, rn, x, picks, beta=1.0,
+                                limit=10)
+    assert not fake_launch
+    assert sweep_csr.LAUNCHES == dict.fromkeys(sweep_csr.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("n, k", [(16384, 51), (1, 1), (0, 3)])
+def test_colsum_launcher_passes_the_shape(monkeypatch, n, k):
+    entry = _Entry()
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_build, "entry", lambda source, name, argtypes: entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None:
+                        _Stream())
+    monkeypatch.setattr(colsum_mod, "LAUNCHES", dict(colsum_mod.LAUNCHES))
+    out = colsum_mod.colsum(torch.zeros((n, k)))
+    assert out.shape == (k,)
+    (args,) = entry.calls
+    assert len(args) == len(colsum_mod._ARGS)
+    assert args[3:6] == (n, k, colsum_mod.slices(n))
+    assert colsum_mod.LAUNCHES["colsum"] == 1
+
+
 @pytest.mark.parametrize("col_warps", [0, 1, 2, 4])
 def test_bbmv_launcher_passes_the_column_tile(fake_launch, col_warps):
     nb, bands, block, k = 3, 1, 8, 5
@@ -173,7 +277,8 @@ def _c_entries(source: str) -> dict[str, int]:
 
 def _entry_cases():
     cases = []
-    for module, source in ((sweep_csr, "sweep_csr"), (bbmv_mod, "bbmv")):
+    for module, source in ((sweep_csr, "sweep_csr"), (bbmv_mod, "bbmv"),
+                           (colsum_mod, "colsum")):
         for name, argtypes in module.C_ENTRIES.items():
             cases.append(pytest.param(source, name, argtypes,
                                       id=f"{source}-{name}"))
