@@ -22,9 +22,10 @@ the banded problem, and at P = 4 in four spawned processes that share the
 card through a gloo group.  It holds the two paths of the GS and of both
 Kaczmarz sweeps (the iterate in shared memory, or in global memory when it
 is too tall) against the plain version and against each other (the
-Kaczmarz sweeps also on rows wider than the main path's), the
-column sums of the records against theirs, and the block-banded matvec at
-ragged shapes and at both column-tile widths.  It solves column 0 of each
+Kaczmarz sweeps also on rows wider than the main path's), the two banded
+sweeps likewise (the window in shared or in global memory, at ragged
+blocks and block 256 beside the main path's 128), the column sums of the records against theirs, and the
+block-banded matvec at ragged shapes and at both column-tile widths.  It solves column 0 of each
 path alone and holds it bitwise to column 0 of the k = 51 solve.  It
 checks what comes out, shows from the
 launch counters (set to 0 just before each path and read just after) that
@@ -96,6 +97,18 @@ COLSUM_SHAPES = ((SPD_N, K), (LSQ_M, K), (1000, 3), (1, 1))
 # warp tile (its tile rows are still 16-byte aligned); block 18 rows are
 # not, so its tiles and x are staged element by element.
 RAGGED_NB, RAGGED_BLOCKS, RAGGED_KS = 9, (20, 18), (1, 3, 51)
+# The banded sweeps beyond the main path's block 128: the ragged blocks
+# (f32 rows of block 18 and bf16 rows of block 20 are staged element by
+# element; block 20 f32 and the rest by bulk copies) and the largest block
+# the wrappers take, at these bands, on both paths (csrc/banded_gs.cu),
+# 2 * RAGGED_NB picks each.  Then more bands than the kernel's 15
+# consumer warps: at 12 bands (25 tiles a block row) ten warps own two
+# bands each and keep the second's Kaczmarz sums in shared memory; block
+# 256 leaves room for stages of 8 tile rows at 7 bands and of 4 (the
+# smallest stage) at 12 in f32; block 18 stages element by element.
+BANDED_WIDE_BANDS = (1, 2)
+BANDED_MANY_BANDS = ((256, (7, 12)), (18, (12,)))
+BANDED_MANY_BANDS_KS = (3, 1)
 MONO_RTOL = 1e-6            # err_sq non-increasing up to this rounding
 RESID_RTOL = 1e-4           # kernel residual vs dense torch.matmul residual
 # The distributed Kaczmarz engine.  P = 1 in this process: sparse_rk on the
@@ -213,6 +226,91 @@ def p4_rank(group, device, path):
     return out
 
 
+def banded_beyond_main(torch, ops, launcher, ref_banded, blocks, bands_list,
+                       ks, gen, dev) -> None:
+    """The banded GS and RK sweeps at ``blocks`` x ``bands_list`` x ``ks``,
+    f32 and bf16 tiles, on random inputs: each against its plain
+    version, its shared-memory and global paths (each forced) bitwise
+    equal to what the wrapper launched, column 0 at k = 1 bitwise column 0
+    at the largest k; RK also from xw = dw = 0 the two carries equal,
+    and all gates 0 leaving both windows as they were."""
+    nb, steps = RAGGED_NB, 2 * RAGGED_NB
+    kmax = max(ks)
+    for blk in blocks:
+        for bands in bands_list:
+            width = 2 * bands + 1
+            rows_w = (nb + 2 * bands) * blk
+            for vdt in (torch.float32, torch.bfloat16):
+                tiles = (torch.randn((nb, width, blk, blk), generator=gen,
+                                     device=dev)
+                         / (width * blk) ** 0.5).to(vdt)
+                b = torch.randn((nb * blk, kmax), generator=gen, device=dev)
+                xw = torch.randn((rows_w, kmax), generator=gen, device=dev)
+                dw = torch.randn((rows_w, kmax), generator=gen, device=dev)
+                rn = torch.rand((nb, blk), generator=gen, device=dev) + 0.5
+                picks = torch.randint(0, nb, (steps,), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                gates = (torch.rand((steps,), generator=gen, device=dev)
+                         < 0.5).to(torch.int32)
+                kw = dict(block=blk, bands=bands, beta=0.9)
+                first = {}
+                for kk in sorted(ks, reverse=True):
+                    tag = (f"{str(vdt)[6:]} nb={nb} block={blk} "
+                           f"bands={bands} k={kk}")
+                    bk, xk, dk = (t[:, :kk].contiguous() for t in (b, xw, dw))
+                    got = ops.banded_gs_sweep(tiles, bk, xk, picks, **kw)
+                    paths = [launcher.banded_gs_sweep(tiles, bk, xk, picks,
+                                                      limit=nb, _shared=sh,
+                                                      **kw)
+                             for sh in (True, False)]
+                    want = ref_banded.banded_gs_sweep_ref(tiles, bk, xk,
+                                                          picks, **kw)
+                    e = rel(got, want)
+                    check(e <= SWEEP_RTOL, f"banded_gs_sweep {tag}: rel err "
+                          f"{e:.3e} <= {SWEEP_RTOL:g}")
+                    check(all(torch.equal(got, h) for h in paths),
+                          f"banded_gs_sweep {tag}: the shared-memory and "
+                          "global paths bitwise equal the wrapper's launch")
+                    rgot = ops.banded_rk_sweep(tiles, bk, rn, xk, dk, picks,
+                                               gates, **kw)
+                    rpaths = [launcher.banded_rk_sweep(
+                        tiles, bk, rn, xk, dk, picks, gates, limit=nb,
+                        _shared=sh, **kw) for sh in (True, False)]
+                    rwant = ref_banded.banded_rk_sweep_ref(
+                        tiles, bk, rn, xk, dk, picks, gates, **kw)
+                    e = max(rel(g, w) for g, w in zip(rgot, rwant))
+                    check(e <= SWEEP_RTOL, f"banded_rk_sweep {tag}, mixed "
+                          f"gates: rel err of xw and dw {e:.3e} <= "
+                          f"{SWEEP_RTOL:g}")
+                    check(all(torch.equal(g, h) for hs in rpaths
+                              for g, h in zip(rgot, hs)),
+                          f"banded_rk_sweep {tag}: the shared-memory and "
+                          "global paths bitwise equal the wrapper's launch")
+                    zero = torch.zeros_like(xk)
+                    zx, zd = ops.banded_rk_sweep(tiles, bk, rn, zero, zero,
+                                                 picks, torch.ones_like(gates),
+                                                 **kw)
+                    check(torch.equal(zx, zd) and bool(zx.any()),
+                          f"banded_rk_sweep {tag}: from xw = dw = 0 the two "
+                          "carries end bitwise equal")
+                    same = ops.banded_rk_sweep(tiles, bk, rn, xk, dk, picks,
+                                               torch.zeros_like(gates), **kw)
+                    check(torch.equal(same[0], xk) and torch.equal(same[1], dk),
+                          f"banded_rk_sweep {tag}: all gates 0 leave xw and "
+                          "dw bitwise unchanged")
+                    if kk == kmax:
+                        first = dict(gs=got[:, 0], xw=rgot[0][:, 0],
+                                     dw=rgot[1][:, 0])
+                    elif kk == 1:
+                        check(torch.equal(got[:, 0], first["gs"]),
+                              f"banded_gs_sweep {tag}: column 0 bitwise "
+                              f"equals column 0 at k={kmax}")
+                        check(torch.equal(rgot[0][:, 0], first["xw"])
+                              and torch.equal(rgot[1][:, 0], first["dw"]),
+                              f"banded_rk_sweep {tag}: column 0 bitwise "
+                              f"equals column 0 at k={kmax}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -236,6 +334,7 @@ def main() -> int:
                                                 CsrOp, DenseOp)
         from repro_torch.kernels import (_build, ops, ref, ref_banded,
                                          sweep_csr)
+        from repro_torch.kernels import banded_gs as _banded
         from repro_torch.kernels import bbmv as _bbmv
         from repro_torch.launch.mesh import process_group, run_workers
         from repro_torch.tune import TuningTable, runtime, use_table
@@ -972,6 +1071,40 @@ def main() -> int:
               f"banded_rk_sweep {tag}: column 0 at k={K} bitwise equals k=1")
         if sd is None:
             rk_args["banded_rk_sweep"] = (args, xw)
+
+    # The banded sweeps' global path (the window in global memory) at the
+    # main shapes, bitwise equal to what the wrappers launch there (the
+    # shared-memory path), on the GS chunk and on the P = 4 check round,
+    # f32 and bf16 tiles.  The bare launchers take int32 picks.
+    band_picks32, lic32 = band_picks.to(torch.int32), lic.to(torch.int32)
+    for sd in (None, "bfloat16"):
+        tag = "f32" if sd is None else "bf16"
+        op = ops_by[("banded", sd)]
+        packed = op.packed_band_tiles()
+        gs_kw = dict(block=BLOCK, bands=BANDS, beta=0.9, limit=nb)
+        want = ops.banded_gs_sweep(packed, banded.b, xw_band, band_picks,
+                                   block=BLOCK, bands=BANDS, beta=0.9)
+        rnb = op.row_norms_sq()
+        rnb = torch.where(rnb > 0, rnb, 1.0)[nb_local:2 * nb_local]
+        args = (packed[nb_local:2 * nb_local], banded.b[row0:2 * row0], rnb)
+        xw = xw_band[row0:2 * row0 + 2 * halo]
+        rk_kw = dict(block=BLOCK, bands=BANDS, beta=0.9, limit=nb_local)
+        rwant = ops.banded_rk_sweep(*args, xw, dw_band, lic, gates,
+                                    block=BLOCK, bands=BANDS, beta=0.9)
+        got = _banded.banded_gs_sweep(packed, banded.b, xw_band, band_picks32,
+                                      _shared=False, **gs_kw)
+        rgot = _banded.banded_rk_sweep(*args, xw, dw_band, lic32, gates,
+                                       _shared=False, **rk_kw)
+        check(torch.equal(got, want)
+              and all(torch.equal(g, w) for g, w in zip(rgot, rwant)),
+              f"banded sweeps {tag}, global path: the GS chunk and the P = 4 "
+              "round bitwise equal the wrappers' launch")
+    banded_beyond_main(torch, ops, _banded, ref_banded,
+                       RAGGED_BLOCKS + (ops.MAX_BLOCK,), BANDED_WIDE_BANDS,
+                       RAGGED_KS, gen_gs, dev)
+    for blk, bands_list in BANDED_MANY_BANDS:
+        banded_beyond_main(torch, ops, _banded, ref_banded, (blk,),
+                           bands_list, BANDED_MANY_BANDS_KS, gen_gs, dev)
 
     # The dense block-GS kernel on the banded problem's dense matrix (1 GiB
     # of f32, and a bf16 copy), over the first chunk of a main-path pick
@@ -1715,10 +1848,16 @@ def main() -> int:
     # sweeps' rule: per pick its 2*bands+1 tiles, its b block and its id,
     # plus the window once in and once out; flops: 2 * block^2 * k per
     # tile read.  No library call computes this serial chain.
+    # "ms" is the shared-memory path the wrapper takes at this window,
+    # "global_ms" the global path on the same inputs (the bare launcher
+    # told to take it).
     packed = op.packed_band_tiles()
     run = functools.partial(ops.banded_gs_sweep, packed, banded.b, xw_band,
                             band_picks, block=BLOCK, bands=BANDS)
     ms = cuda_ms(run, 10)
+    global_ms = cuda_ms(functools.partial(
+        _banded.banded_gs_sweep, packed, banded.b, xw_band, band_picks32,
+        block=BLOCK, bands=BANDS, beta=1.0, limit=nb, _shared=False), 10)
     plain_ms = cuda_ms(functools.partial(
         ref_banded.banded_gs_sweep_ref, packed, banded.b, xw_band,
         band_picks, block=BLOCK, bands=BANDS), 1)
@@ -1726,58 +1865,75 @@ def main() -> int:
     b_ms, by = bound_ms(nb * per_pick + 2 * xw_band.numel() * 4,
                         2.0 * nb * (2 * BANDS + 1) * BLOCK * BLOCK * K)
     print(f"  banded_gs_sweep, one main-path chunk ({nb} picks): {ms:.4f} ms "
-          f"({ms * 1e3 / nb:.3f} us/pick); plain {plain_ms:.2f} ms; bound "
-          f"{b_ms:.5f} ms ({by}); no library call", flush=True)
+          f"({ms * 1e3 / nb:.3f} us/pick); global path {global_ms:.4f} ms; "
+          f"plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); no library "
+          "call", flush=True)
     lines.append(dict(name="banded_gs_sweep", route="cuda",
                       source="src/repro_torch/csrc/banded_gs.cu",
                       replaces="src/repro/kernels/banded_gs.py:93",
                       launches=launches["banded_gs_sweep"],
                       max_abs_err=errs[("banded_gs_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=None))
+                      library_ms=None, global_ms=global_ms))
 
     # banded_rk_sweep: the P = 4 check round (rank 1's window, mixed
-    # gates).  A pick whose gate is 0 leaves both windows as they were, so
-    # the least work these inputs need is the owned picks': per such pick
-    # its tiles, b block, row norms, id and gate, and 2 * 2 * block^2 * k
-    # flops per tile read (A x, then A^T gn); both windows once in and
-    # once out.  No library call computes this serial chain.
+    # gates) and one P = 1 main-path round (nb picks, every gate 1, on the
+    # whole problem's window), each with its global path ("global_ms").  A
+    # pick whose gate is 0 leaves both windows as they were, so the least
+    # work these inputs need is the owned picks': per such pick its tiles,
+    # b block, row norms, id and gate, and 2 * 2 * block^2 * k flops per
+    # tile read (A x, then A^T gn); both windows once in and once out.  No
+    # library call computes this serial chain.
+    per_pick = ((2 * BANDS + 1) * BLOCK * BLOCK * val_b + BLOCK * K * 4
+                + BLOCK * 4 + 8)
+
+    def rk_bound(owned, window_elems):
+        return bound_ms(owned * per_pick + 2 * 2 * window_elems * 4,
+                        4.0 * owned * (2 * BANDS + 1) * BLOCK * BLOCK * K)
+
     args, xw = rk_args["banded_rk_sweep"]
     run = functools.partial(ops.banded_rk_sweep, *args, xw, dw_band, lic,
                             gates, block=BLOCK, bands=BANDS)
     ms = cuda_ms(run, 10)
+    global_ms = cuda_ms(functools.partial(
+        _banded.banded_rk_sweep, *args, xw, dw_band, lic32, gates,
+        block=BLOCK, bands=BANDS, beta=1.0, limit=nb_local, _shared=False),
+        10)
     plain_ms = cuda_ms(functools.partial(
         ref_banded.banded_rk_sweep_ref, *args, xw, dw_band, lic, gates,
         block=BLOCK, bands=BANDS), 1)
     owned = int(gates.sum())
-    per_pick = ((2 * BANDS + 1) * BLOCK * BLOCK * val_b + BLOCK * K * 4
-                + BLOCK * 4 + 8)
-    b_ms, by = bound_ms(owned * per_pick + 2 * 2 * xw.numel() * 4,
-                        4.0 * owned * (2 * BANDS + 1) * BLOCK * BLOCK * K)
+    b_ms, by = rk_bound(owned, xw.numel())
     print(f"  banded_rk_sweep, one P = {P4} round ({P4_BANDED_STEPS} picks, "
           f"{owned} owned): {ms:.4f} ms ({ms * 1e3 / P4_BANDED_STEPS:.3f} "
-          f"us/pick); plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); "
-          "no library call", flush=True)
+          f"us/pick); global path {global_ms:.4f} ms; plain {plain_ms:.2f} "
+          f"ms; bound {b_ms:.5f} ms ({by}); no library call", flush=True)
+    op = ops_by[("banded", None)]
+    rn_all = op.row_norms_sq()
+    rn_all = torch.where(rn_all > 0, rn_all, 1.0)
+    rk_round = sample_rows(panel_w, nb, generator=gen)
+    ones = torch.ones_like(rk_round, dtype=torch.int32)
+    p1_args = (op.packed_band_tiles(), banded.b, rn_all, xw_band,
+               torch.zeros_like(xw_band), rk_round)
+    ms_p1 = cuda_ms(lambda: ops.banded_rk_sweep(
+        *p1_args, ones, block=BLOCK, bands=BANDS), 5)
+    global_p1 = cuda_ms(lambda: _banded.banded_rk_sweep(
+        *p1_args[:-1], rk_round.to(torch.int32), ones, block=BLOCK,
+        bands=BANDS, beta=1.0, limit=nb, _shared=False), 5)
+    b_p1, by_p1 = rk_bound(nb, xw_band.numel())
+    print(f"  banded_rk_sweep, one P = 1 main-path round ({nb} picks, all "
+          f"owned): {ms_p1:.4f} ms ({ms_p1 * 1e3 / nb:.3f} us/pick); global "
+          f"path {global_p1:.4f} ms; bound {b_p1:.5f} ms ({by_p1})",
+          flush=True)
     lines.append(dict(name="banded_rk_sweep", route="cuda",
                       source="src/repro_torch/csrc/banded_gs.cu",
                       replaces="src/repro/kernels/banded_gs.py:191",
                       launches=launches["banded_rk_sweep"],
                       max_abs_err=errs[("banded_rk_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=None))
-    # one P = 1 main-path round: nb picks, every gate 1, on the whole
-    # problem's window
-    op = ops_by[("banded", None)]
-    rn_all = op.row_norms_sq()
-    rn_all = torch.where(rn_all > 0, rn_all, 1.0)
-    rk_round = sample_rows(panel_w, nb, generator=gen)
-    ones = torch.ones_like(rk_round, dtype=torch.int32)
-    ms = cuda_ms(lambda: ops.banded_rk_sweep(
-        op.packed_band_tiles(), banded.b, rn_all, xw_band,
-        torch.zeros_like(xw_band), rk_round, ones, block=BLOCK,
-        bands=BANDS), 5)
-    print(f"  banded_rk_sweep, one P = 1 main-path round ({nb} picks): "
-          f"{ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick)", flush=True)
+                      library_ms=None, global_ms=global_ms, p1_ms=ms_p1,
+                      p1_global_ms=global_p1, p1_bound_ms=b_p1,
+                      p1_bound_by=by_p1))
 
     # block_gs_sweep: one main-path chunk (nb picks of BLOCK-row panels).
     # Bytes, by the sweeps' rule: per pick its (BLOCK, n) row panel, its b

@@ -37,9 +37,10 @@ _COUNTERS = (sweep_csr.LAUNCHES, _spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
              _colsum.LAUNCHES)
 
 # Largest block the band-tile and dense block-GS CUDA kernels take
-# (csrc/banded.cuh, csrc/block_gs.cu: one CTA's staged rows must fit the
-# shared memory a launch gets without opting in; csrc/bbmv.cu: at most
-# four row warps and two staged chunks of all rows).
+# (csrc/banded_gs.cu: a lane of the banded Kaczmarz sweep's A^T gn holds
+# at most two 4-column chunks of a tile row; csrc/block_gs.cu: one CTA's
+# staged rows must fit the shared memory a launch gets without opting in;
+# csrc/bbmv.cu: at most four row warps and two staged chunks of all rows).
 MAX_BLOCK = 256
 
 
@@ -326,7 +327,9 @@ def banded_gs_sweep(A_bands, b, xw, picks, *, block: int, bands: int,
     A_bands: (nb, 2*bands+1, block, block) with border tiles zero
     (``bbmv.pack_bands_local``); b: (nb*block, k) f32; xw: the halo-padded
     window ((nb + 2*bands)*block, k) f32; picks: (steps,) block-row ids in
-    [0, nb).
+    [0, nb).  On the card any band count runs whose ring of 2*bands+2
+    tile stages fits in shared memory (``banded_gs.plan`` raises
+    otherwise; 36 bands at block 128 in f32).
     """
     name = "banded_gs_sweep"
     cuda = _on_cuda(name, A_bands, b, xw)

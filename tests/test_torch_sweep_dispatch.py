@@ -6,10 +6,14 @@ version and against each other).
 - ``sweep_csr.fits_shared``: the size rule that picks the shared-memory
   path (one RHS column a CTA) or the global path, as the GS sweep calls
   it (one carry) and as the RK sweeps call it (one or two).
+- ``banded_gs.fits_shared`` / ``plan``: the banded sweeps' size rule
+  (the window column beside a ring of tile stages) and the ring it
+  leaves, against the H100's opt-in capacity.
 - ``sweep_csr.sweep_rows_gs`` / ``sweep_rows_rk`` / ``sweep_rows_rk_delta``
-  / ``bbmv.bbmv`` / ``colsum.colsum``: what they hand the C entry (a
-  stand-in records the call), so the argument lists, the iterate's row
-  count and the private overrides are checked without a card.
+  / ``bbmv.bbmv`` / ``colsum.colsum`` / ``banded_gs.banded_gs_sweep`` /
+  ``banded_rk_sweep``: what they hand the C entry (a stand-in records the
+  call), so the argument lists, the iterate's row count and the private
+  overrides are checked without a card.
 - Every C entry the launchers load is declared ``extern "C"`` in its
   ``csrc/*.cu`` source with as many parameters as its ctypes list
   (the sources are parsed as text).
@@ -22,6 +26,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import banded_gs as banded_mod  # noqa: E402
 from repro_torch.kernels import bbmv as bbmv_mod  # noqa: E402
 from repro_torch.kernels import colsum as colsum_mod  # noqa: E402
 from repro_torch.kernels import sweep_csr  # noqa: E402
@@ -105,6 +110,7 @@ def fake_launch(monkeypatch):
     monkeypatch.setattr(sweep_csr, "shared_capacity", lambda device: CAP)
     monkeypatch.setattr(sweep_csr, "LAUNCHES", dict(sweep_csr.LAUNCHES))
     monkeypatch.setattr(bbmv_mod, "LAUNCHES", dict(bbmv_mod.LAUNCHES))
+    monkeypatch.setattr(banded_mod, "LAUNCHES", dict(banded_mod.LAUNCHES))
     return entries
 
 
@@ -278,7 +284,7 @@ def _c_entries(source: str) -> dict[str, int]:
 def _entry_cases():
     cases = []
     for module, source in ((sweep_csr, "sweep_csr"), (bbmv_mod, "bbmv"),
-                           (colsum_mod, "colsum")):
+                           (colsum_mod, "colsum"), (banded_mod, "banded_gs")):
         for name, argtypes in module.C_ENTRIES.items():
             cases.append(pytest.param(source, name, argtypes,
                                       id=f"{source}-{name}"))
@@ -298,5 +304,189 @@ def test_entry_tables_cover_every_type_pair():
     assert gs == {f"sweep_rows_gs_{s}" for s in _build.SUFFIX.values()}
     assert set(bbmv_mod.C_ENTRIES) == {
         f"bbmv_{s}" for s in _build.VALUE_SUFFIX.values()}
+    assert set(banded_mod.C_ENTRIES) == {
+        f"{kernel}_{s}" for kernel in ("banded_gs_sweep", "banded_rk_sweep")
+        for s in _build.VALUE_SUFFIX.values()}
     assert sweep_csr.C_ENTRIES["sweep_shared_capacity"] == [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+
+
+# The banded sweeps (csrc/banded_gs.cu).  At block 128, bands 2 in f32 a
+# stage is 4 slices of 8 rows, 4 * (8 * 512 + 16) = 16448 bytes; the rule
+# asks for 6 of them beside the mbarriers (256), the parts (1280) and g
+# (512): 100736 bytes, which leaves 131712 bytes, 32928 rows, for the
+# window column.
+BANDED_ROWS_MAX = 32928
+BANDED_MAIN = (128 + 4) * 128     # the main path's window: nb 128, halos
+BANDED_P4 = (32 + 4) * 128        # a P = 4 rank's window
+
+
+@pytest.mark.parametrize("rows_w, want", [
+    (BANDED_ROWS_MAX, True),
+    (BANDED_ROWS_MAX + 1, False),     # 4 more bytes round up to 16
+    (BANDED_ROWS_MAX + 4, False),
+    (BANDED_MAIN, True),
+    (BANDED_P4, True),
+    (65536, False),                   # too tall: the global path
+])
+def test_banded_fits_shared(rows_w, want):
+    assert banded_mod.fits_shared(rows_w, 128, 2, 4, CAP) is want
+    assert (banded_mod.smem_bytes(128, 2, 4, 32, 6, rows_w, True)
+            <= CAP) is want
+
+
+@pytest.mark.parametrize("rows_w, itemsize, shared, want", [
+    (BANDED_MAIN, 4, True, (32, 9)),
+    (BANDED_MAIN, 2, True, (32, 16)),
+    (BANDED_P4, 4, True, (32, 12)),
+    (65536, 4, False, (32, 13)),
+])
+def test_banded_plan_fills_the_capacity(rows_w, itemsize, shared, want):
+    rows, stages = banded_mod.plan(rows_w, 128, 2, itemsize, CAP, shared)
+    assert (rows, stages) == want
+    assert banded_mod.smem_bytes(128, 2, itemsize, rows, stages, rows_w,
+                                 shared) <= CAP
+    assert stages == banded_mod.MAX_STAGES or banded_mod.smem_bytes(
+        128, 2, itemsize, rows, stages + 1, rows_w, shared) > CAP
+
+
+@pytest.mark.parametrize("block, bands", [(256, 7), (256, 2), (18, 7),
+                                          (20, 1), (1, 0), (256, 18),
+                                          (128, 36), (18, 201)])
+def test_banded_plan_always_leaves_a_full_row_group(block, bands):
+    """Shapes up to the most bands the capacity holds get a ring of at
+    least 2*bands+2 stages on the global path (the Kaczmarz sweep holds one
+    stage per band of a row group), shrinking the stage where it must."""
+    rows, stages = banded_mod.plan(0, block, bands, 4, CAP, False)
+    assert stages >= 2 * bands + 2 and rows in banded_mod.STAGE_ROWS
+    assert banded_mod.smem_bytes(block, bands, 4, rows, stages, 0,
+                                 False) <= CAP
+
+
+def test_banded_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="no stage ring fits"):
+        banded_mod.plan(BANDED_MAIN, 128, 2, 4, 70000, True)
+
+
+@pytest.mark.parametrize("block, bands", [(256, 19), (128, 37), (18, 202)])
+def test_banded_plan_bounds_the_bands_by_capacity(block, bands):
+    """One more band than the largest of
+    ``test_banded_plan_always_leaves_a_full_row_group``: 2*bands+2 stages
+    of the smallest stage no longer fit beside the rest."""
+    with pytest.raises(ValueError, match="no stage ring fits"):
+        banded_mod.plan(0, block, bands, 4, CAP, False)
+
+
+@pytest.mark.parametrize("block, bands, itemsize, want", [
+    (256, 7, 4, (8, 16)),
+    (256, 7, 2, (16, 16)),
+    (256, 12, 4, (4, 26)),   # the smallest stage
+    (256, 12, 2, (8, 26)),
+    (128, 12, 4, (8, 26)),
+    (18, 12, 4, (32, 26)),
+])
+def test_banded_plan_past_one_warp_a_band(block, bands, itemsize, want):
+    """Past 7 bands (15 consumer warps) the ring grows to 2*bands+2
+    stages, beyond ``MAX_STAGES``, shrinking the stage to fit."""
+    rows, stages = banded_mod.plan(0, block, bands, itemsize, CAP, False)
+    assert (rows, stages) == want
+    assert banded_mod.smem_bytes(block, bands, itemsize, rows, stages, 0,
+                                 False) <= CAP
+
+
+def test_banded_constants_match_the_source():
+    text = (_build.CSRC / "banded_gs.cu").read_text()
+    for const, value in (("kMaxStageRows", banded_mod.STAGE_ROWS[0]),
+                         ("kSlices", banded_mod.SLICES),
+                         ("kConsumers", banded_mod.CONSUMERS),
+                         ("kMaxBlock", 256)):
+        assert re.search(rf"constexpr int {const} = {value};", text), const
+
+
+def _banded_inputs(nb, block, bands, k, steps=7, dtype=torch.float32):
+    A = torch.zeros((nb, 2 * bands + 1, block, block), dtype=dtype)
+    b = torch.zeros((nb * block, k))
+    xw = torch.zeros(((nb + 2 * bands) * block, k))
+    rn = torch.ones((nb, block))
+    picks = torch.zeros((steps,), dtype=torch.int32)
+    return A, b, rn, xw, picks
+
+
+# block 8, bands 1, nb 10: a 96-row window, 5792 bytes on the shared path
+# (mbarriers 256, 4 stages of 4 * (8 * 32 + 16) = 1088, parts 768, g 32,
+# window 384)
+SMALL_CAP = 5792
+
+
+@pytest.mark.parametrize("rk", [False, True])
+@pytest.mark.parametrize("capacity, override, k, want", [
+    (SMALL_CAP, None, 3, (1, 32, 4)),
+    (SMALL_CAP - 1, None, 51, (0, 32, 4)),      # the global path
+    (SMALL_CAP, False, 51, (0, 32, 4)),
+    (SMALL_CAP + 1088, True, 1, (1, 32, 5)),    # one stage more
+    (SMALL_CAP - 1, True, 1, (1, 16, 8)),       # forced: smaller stages
+    (CAP, None, 1, (1, 32, 16)),
+])
+def test_banded_launchers_pass_the_plan(fake_launch, monkeypatch, rk,
+                                        capacity, override, k, want):
+    monkeypatch.setattr(sweep_csr, "shared_capacity",
+                        lambda device: capacity)
+    nb, block, bands = 10, 8, 1
+    A, b, rn, xw, picks = _banded_inputs(nb, block, bands, k)
+    kw = dict(block=block, bands=bands, beta=0.5, limit=nb, _shared=override)
+    if rk:
+        gates = torch.ones_like(picks)
+        xo, do = banded_mod.banded_rk_sweep(A, b, rn, xw, xw, picks, gates,
+                                            **kw)
+        assert xo.shape == do.shape == xw.shape
+        name, argtypes, first = "banded_rk_sweep", banded_mod._RK_ARGS, 7
+    else:
+        assert banded_mod.banded_gs_sweep(A, b, xw, picks,
+                                          **kw).shape == xw.shape
+        name, argtypes, first = "banded_gs_sweep", banded_mod._ARGS, 4
+    entry = fake_launch[name]
+    (args,) = entry.calls
+    assert len(args) == len(entry.argtypes) == len(argtypes)
+    assert args[first:first + 6] == (7, nb, bands, block, k, 0.5)
+    assert args[first + 6:first + 9] == want
+    assert banded_mod.LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("rk", [False, True])
+@pytest.mark.parametrize("k, steps", [(0, 4), (3, 0), (0, 0)])
+def test_banded_launchers_without_work_launch_nothing(fake_launch, rk, k,
+                                                      steps):
+    A, b, rn, xw, picks = _banded_inputs(4, 8, 1, k, steps)
+    kw = dict(block=8, bands=1, beta=1.0, limit=4)
+    if rk:
+        xo, do = banded_mod.banded_rk_sweep(A, b, rn, xw, xw, picks,
+                                            torch.ones_like(picks), **kw)
+        assert xo.shape == do.shape == xw.shape
+    else:
+        assert banded_mod.banded_gs_sweep(A, b, xw, picks,
+                                          **kw).shape == xw.shape
+    assert not fake_launch
+    assert banded_mod.LAUNCHES == dict.fromkeys(banded_mod.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("rk", [False, True])
+@pytest.mark.parametrize("bands, want", [(7, (1, 32, 16)),
+                                         (8, (1, 32, 18)),
+                                         (12, (1, 32, 26))])
+def test_banded_launchers_take_any_bands(fake_launch, rk, bands, want):
+    """More bands than consumer warps go to the same C entry, with a ring
+    of 2*bands+2 stages (the Kaczmarz sweep holds a row group's 2*bands+1
+    at once)."""
+    nb, block = 3, 8
+    A, b, rn, xw, picks = _banded_inputs(nb, block, bands, 2)
+    kw = dict(block=block, bands=bands, beta=1.0, limit=nb)
+    if rk:
+        banded_mod.banded_rk_sweep(A, b, rn, xw, xw, picks,
+                                   torch.ones_like(picks), **kw)
+        name, first = "banded_rk_sweep", 7
+    else:
+        banded_mod.banded_gs_sweep(A, b, xw, picks, **kw)
+        name, first = "banded_gs_sweep", 4
+    (args,) = fake_launch[name].calls
+    assert args[first + 2] == bands
+    assert args[first + 6:first + 9] == want
