@@ -24,8 +24,12 @@ Kaczmarz sweeps (the iterate in shared memory, or in global memory when it
 is too tall) against the plain version and against each other (the
 Kaczmarz sweeps also on rows wider than the main path's), the two banded
 sweeps likewise (the window in shared or in global memory, at ragged
-blocks and block 256 beside the main path's 128), the column sums of the records against theirs, and the
-block-banded matvec at ragged shapes and at both column-tile widths.  It solves column 0 of each
+blocks and block 256 beside the main path's 128), the dense block-GS
+sweep at blocks 2 to 256, ragged and unaligned n, two column tiles of x,
+x tiles reloaded at each step and the lookahead's worst pick streams, the
+column sums of the
+records against theirs, and the block-banded matvec at ragged shapes and
+at both column-tile widths.  It solves column 0 of each
 path alone and holds it bitwise to column 0 of the k = 51 solve.  It
 checks what comes out, shows from the
 launch counters (set to 0 just before each path and read just after) that
@@ -109,6 +113,34 @@ RAGGED_NB, RAGGED_BLOCKS, RAGGED_KS = 9, (20, 18), (1, 3, 51)
 BANDED_WIDE_BANDS = (1, 2)
 BANDED_MANY_BANDS = ((256, (7, 12)), (18, (12,)))
 BANDED_MANY_BANDS_KS = (3, 1)
+# The dense block-GS sweep beyond the main chunk (csrc/block_gs.cu; slices
+# of 256 columns of A, units of 32 rows, column tiles of 64): (n, block,
+# pick stream, ks, the path a case must reach).  Random streams take
+# 2 * n / block picks; at block 128 a stream repeats one block and one
+# alternates the two blocks of one slice (every step writes the slice the
+# next one reads: the lookahead's worst cases), at n = 2048 (one unit a
+# CTA) and at n = 16384 (two).  Blocks 64, 96 (a block across a slice
+# edge), 256 and 20 at n = 3000 (the last slice ragged); k = 70 and 128
+# (two column tiles, the second ragged at 70); n = 3002 (rows of A that
+# are no multiple of 16 bytes, staged element by element); block 256 at
+# n = 16384 (four units a CTA, whose x tiles do not all fit: reloaded at
+# each step).  f32 and bf16 A.
+BGS_CASES = (
+    (2048, 64, "random", (51, 3, 1), None),
+    (2048, 96, "random", (51, 3, 1), None),
+    (2048, 256, "random", (51, 3, 1), None),
+    (3000, 20, "random", (51, 3, 1), None),
+    (2048, 128, "repeat", (51, 3, 1), None),
+    (2048, 128, "alternate", (51, 3, 1), None),
+    (2048, 96, "random", (70, 1), "two column tiles"),
+    (2048, 64, "random", (128, 1), "two column tiles"),
+    (3002, 19, "random", (51, 3, 1), "element-by-element staging"),
+    (3002, 2, "random", (3, 1), "element-by-element staging"),
+    (16384, 256, "random", (51, 1), "x tiles reloaded"),
+    (16384, 128, "repeat", (51, 1), "two units a CTA"),
+    (16384, 128, "alternate", (51, 1), "two units a CTA"),
+)
+BGS_STREAM_STEPS = 40
 MONO_RTOL = 1e-6            # err_sq non-increasing up to this rounding
 RESID_RTOL = 1e-4           # kernel residual vs dense torch.matmul residual
 # The distributed Kaczmarz engine.  P = 1 in this process: sparse_rk on the
@@ -311,6 +343,74 @@ def banded_beyond_main(torch, ops, launcher, ref_banded, blocks, bands_list,
                               f"equals column 0 at k={kmax}")
 
 
+def block_gs_beyond_main(torch, ops, launcher, ref, gen, dev) -> None:
+    """The dense block-GS sweep on ``BGS_CASES``, f32 and bf16 A: each k
+    against its plain version and two runs bitwise, column 0 at k = 1
+    bitwise column 0 at the largest k; kernels/block_gs.py's plan and
+    scratch size equal the source's (the plan on this card and on one with
+    half its SMs and shared memory), and the plan reaches the case's
+    path."""
+    props = torch.cuda.get_device_properties(dev)
+    sms, cap = props.multi_processor_count, props.shared_memory_per_block_optin
+    reaches = {
+        "two column tiles": lambda p, n, isz: p.ctiles == 2,
+        "element-by-element staging": lambda p, n, isz: n * isz % 16 != 0,
+        "x tiles reloaded": lambda p, n, isz: p.xbufs < p.per_cta,
+        "two units a CTA": lambda p, n, isz: p.per_cta == 2,
+    }
+    for n, blk, stream, ks, path in BGS_CASES:
+        nb = n // blk
+        if stream == "random":
+            picks = torch.randint(0, nb, (2 * nb,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        elif stream == "repeat":
+            picks = torch.full((BGS_STREAM_STEPS,), 3, dtype=torch.int32,
+                               device=dev)
+        else:  # blocks 4 and 5: rows 512 ... 767, both in slice 2
+            picks = torch.tensor([4, 5] * (BGS_STREAM_STEPS // 2),
+                                 dtype=torch.int32, device=dev)
+        kmax = max(ks)
+        A32 = (torch.randn((n, n), generator=gen, device=dev) / n ** 0.5
+               + torch.eye(n, device=dev))
+        b = torch.randn((n, kmax), generator=gen, device=dev)
+        x = torch.randn((n, kmax), generator=gen, device=dev)
+        for A in (A32, A32.to(torch.bfloat16)):
+            isz = A.element_size()
+            tag0 = f"{str(A.dtype)[6:]} n={n} block={blk} {stream} picks"
+            check(all(launcher.plan(n, blk, kmax, isz, s_, c_)
+                      == launcher.c_plan(n, blk, kmax, isz, s_, c_)
+                      for s_, c_ in ((sms, cap), (sms // 2, cap // 2)))
+                  and launcher.scratch_floats(n, blk, kmax)
+                  == launcher._c_scratch_floats(n, blk, kmax),
+                  f"block_gs_sweep {tag0} k={kmax}: kernels/block_gs.py's "
+                  "plan and scratch size equal the source's")
+            if path is not None:
+                p = launcher.plan(n, blk, kmax, isz, sms, cap)
+                check(reaches[path](p, n, isz),
+                      f"block_gs_sweep {tag0} k={kmax}: the plan reaches "
+                      f"{path} ({p})")
+            first = None
+            for kk in ks:
+                tag = f"{tag0} k={kk}"
+                bk, xk = b[:, :kk].contiguous(), x[:, :kk].contiguous()
+                kw = dict(block=blk, beta=0.9)
+                got = ops.block_gs_sweep(A, bk, xk, picks, **kw)
+                want = ref.block_gs_sweep_ref(A, bk, xk, picks, **kw)
+                e = rel(got, want)
+                check(e <= SWEEP_RTOL, f"block_gs_sweep {tag}: rel err "
+                      f"{e:.3e} <= {SWEEP_RTOL:g}")
+                check(torch.equal(ops.block_gs_sweep(A, bk, xk, picks, **kw),
+                                  got),
+                      f"block_gs_sweep {tag}: two runs agree bitwise")
+                if kk == kmax:
+                    first = got[:, 0]
+                elif kk == 1:
+                    check(torch.equal(got[:, 0], first),
+                          f"block_gs_sweep {tag}: column 0 bitwise equals "
+                          f"column 0 at k={kmax}")
+        del A32, A
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -336,6 +436,7 @@ def main() -> int:
                                          sweep_csr)
         from repro_torch.kernels import banded_gs as _banded
         from repro_torch.kernels import bbmv as _bbmv
+        from repro_torch.kernels import block_gs as _block_gs
         from repro_torch.launch.mesh import process_group, run_workers
         from repro_torch.tune import TuningTable, runtime, use_table
         from repro_torch.tune.table import MATVEC_VARIANTS
@@ -1131,6 +1232,8 @@ def main() -> int:
                                  x_band[:, :1].contiguous(), dense_picks, **kw)
         check(torch.equal(one[:, 0], got[:, 0]),
               f"block_gs_sweep {tag}: column 0 at k={K} bitwise equals k=1")
+    block_gs_beyond_main(torch, ops, _block_gs, ref,
+                         torch.Generator(dev).manual_seed(SEED + 18), dev)
     # The dense record matvec: torch.matmul picks its kernel by shape (at
     # one column a matrix-vector product), so DenseOp.matvec multiplies in
     # column groups of one width.  Whether one plain product's column 0
@@ -1945,6 +2048,10 @@ def main() -> int:
     run = functools.partial(ops.block_gs_sweep, A_dense, banded.b, x_band,
                             dense_picks, block=BLOCK)
     ms = cuda_ms(run, 5)
+    A_bf16 = A_dense.to(torch.bfloat16)
+    ms_bf16 = cuda_ms(functools.partial(ops.block_gs_sweep, A_bf16, banded.b,
+                                        x_band, dense_picks, block=BLOCK), 5)
+    del A_bf16
     plain_ms = cuda_ms(functools.partial(
         ref.block_gs_sweep_ref, A_dense, banded.b, x_band, dense_picks,
         block=BLOCK), 1)
@@ -1952,6 +2059,9 @@ def main() -> int:
     b_ms, by = bound_ms(nb * per_pick + 2 * x_band.numel() * 4,
                         nb * (2.0 * BLOCK * SPD_N * K + 3.0 * BLOCK * K))
     panel = A_dense[:BLOCK]
+    props = torch.cuda.get_device_properties(dev)
+    bgs_limits = (props.multi_processor_count,
+                  props.shared_memory_per_block_optin)
     mm_ms = cuda_ms(lambda: panel @ x_band, 20)
     # One record of the dense path: record_metrics' two products with the
     # dense A (torch.matmul, as in the reference) and its column sums.
@@ -1973,17 +2083,21 @@ def main() -> int:
           f"{rec_ms:.4f} ms); one A @ x[:, :1] without the column groups "
           f"{gemv_ms:.4f} ms", flush=True)
     print(f"  block_gs_sweep, one main-path chunk ({nb} picks, n={SPD_N}, "
-          f"block={BLOCK}): {ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick); plain "
-          f"{plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); no library call "
-          f"(a serial chain); one step's panel product by torch.matmul "
-          f"{mm_ms * 1e3:.3f} us", flush=True)
+          f"block={BLOCK}): {ms:.4f} ms ({ms * 1e3 / nb:.3f} us/pick; bf16 A "
+          f"{ms_bf16:.4f} ms, {ms_bf16 * 1e3 / nb:.3f} us/pick); plain "
+          f"{plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}, "
+          f"{b_ms * 1e3 / nb:.3f} us/pick); no library call (a serial "
+          f"chain); one step's panel product by torch.matmul "
+          f"{mm_ms * 1e3:.3f} us; plan "
+          f"{_block_gs.c_plan(SPD_N, BLOCK, K, 4, *bgs_limits)}", flush=True)
     lines.append(dict(name="block_gs_sweep", route="cuda",
                       source="src/repro_torch/csrc/block_gs.cu",
                       replaces="src/repro/kernels/block_gs.py:84",
                       launches=launches["block_gs_sweep"],
                       max_abs_err=errs[("block_gs_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=None))
+                      library_ms=None, us_per_pick=ms * 1e3 / nb,
+                      bf16_ms=ms_bf16))
 
     # The segment-sum pair on both operators; the JSON line takes each
     # kernel on the operator of its main-path run.

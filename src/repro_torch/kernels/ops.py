@@ -38,9 +38,9 @@ _COUNTERS = (sweep_csr.LAUNCHES, _spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
 
 # Largest block the band-tile and dense block-GS CUDA kernels take
 # (csrc/banded_gs.cu: a lane of the banded Kaczmarz sweep's A^T gn holds
-# at most two 4-column chunks of a tile row; csrc/block_gs.cu: one CTA's
-# staged rows must fit the shared memory a launch gets without opting in;
-# csrc/bbmv.cu: at most four row warps and two staged chunks of all rows).
+# at most two 4-column chunks of a tile row; csrc/bbmv.cu: at most four row
+# warps and two staged chunks of all rows; csrc/block_gs.cu splits any
+# block into 32-row units and is held to the same limit).
 MAX_BLOCK = 256
 
 

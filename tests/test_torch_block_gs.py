@@ -1,7 +1,10 @@
 """repro_torch dense block Gauss-Seidel against the reference: the kernel's
 plain version against the Pallas kernel (interpret mode), the dense
 block-GS solve and ``block_gs_solve`` on the reference's own direction
-stream, ``dense_spd``, and the port's own contracts.
+stream, ``dense_spd``, and the port's own contracts; the CUDA kernel's
+launch plan and scratch size (``kernels/block_gs.py``) against brute
+force, the argument parsing of ``tune/block_gs_probe.py`` and the
+source patches of ``tune/block_gs_segments.py``.
 
 Tolerances: the plain version against the Pallas kernel at the reference's
 own (tests/test_kernels.py: 1e-5 for f32, 5e-2 for bf16 storage, whose
@@ -11,6 +14,10 @@ record on its own (see ``_close``; different f32 summation orders of the
 same panel products); dense against banded block GS 1e-5 (the same
 function, different summation orders); ``dense_spd``'s matrix bitwise.
 """
+import re
+from collections import Counter
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -29,7 +36,8 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import rgs, spd  # noqa: E402
 from repro_torch.core.engine import Schedule, solve  # noqa: E402
 from repro_torch.core.operators import DenseOp  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import block_gs, ops, ref  # noqa: E402
+from repro_torch.tune import block_gs_probe, block_gs_segments  # noqa: E402
 
 
 def _port(r):
@@ -236,3 +244,122 @@ def test_dense_spd_matches_reference(n, seed):
     np.testing.assert_allclose(float(p.lam_min), float(r.lam_min), rtol=1e-4)
     np.testing.assert_allclose(float(p.lam_max), float(r.lam_max), rtol=1e-4)
     torch.testing.assert_close(p.b, p.A @ p.x_star, rtol=0, atol=0)
+
+
+# The dense block-GS kernel's launch plan (kernels/block_gs.py::plan, the
+# source's make_plan, which chip_smoke.py holds equal to it on the card)
+# against brute force, on an H100's 132 SMs and 232448 bytes of opt-in
+# shared memory a CTA.
+H100 = dict(sms=132, capacity=232448)
+PLAN_SHAPES = [(16384, 128, 51, 4), (16384, 128, 51, 2), (16384, 128, 1, 4),
+               (16384, 256, 51, 4), (3000, 20, 3, 4), (1536, 64, 70, 2),
+               (1002, 3, 2, 4), (2048, 96, 5, 4), (4096, 256, 200, 4),
+               (256, 1, 1, 2), (3002, 19, 51, 4), (3002, 2, 3, 2)]
+
+
+@pytest.mark.parametrize("n,block,k,itemsize", PLAN_SHAPES)
+def test_block_gs_plan_covers_every_part_once(n, block, k, itemsize):
+    """CTA c owns units c, c + grid, ...; the units' (slice, row, column)
+    parts cover each part of a step exactly once."""
+    p = block_gs.plan(n, block, k, itemsize, **H100)
+    assert p.grid >= 1 and p.stages >= 1   # else the C entry refuses it
+    owned, parts = Counter(), Counter()
+    for c in range(p.grid):
+        mine = range(c, p.units, p.grid)
+        assert 1 <= len(mine) <= p.per_cta
+        for u in mine:
+            owned[u] += 1
+            ct, rem = divmod(u, p.slices * p.groups)
+            sl, rg = divmod(rem, p.groups)
+            for r in range(rg * p.rows, min(block, (rg + 1) * p.rows)):
+                for col in range(ct * p.cols, min(k, (ct + 1) * p.cols)):
+                    parts[sl, r, col] += 1
+    assert sorted(owned) == list(range(p.units))
+    assert set(owned.values()) == {1}
+    assert len(parts) == -(-n // block_gs.SLICE) * block * k
+    assert set(parts.values()) == {1}
+
+
+@pytest.mark.parametrize("n,block,k,itemsize", PLAN_SHAPES)
+def test_block_gs_plan_fits_shared_memory(n, block, k, itemsize):
+    """The CTA's mbarriers, x tiles and panel stages fit, with as many
+    stages as fit (up to MAX_STAGES), and the x tiles stay resident (one a
+    unit) whenever they fit beside two stages."""
+    cap = H100["capacity"]
+    p = block_gs.plan(n, block, k, itemsize, **H100)
+    stage = p.rows * p.pitch
+    xtile = block_gs.SLICE * (-(-p.cols // 4) * 4) * 4
+    assert p.pitch % 16 == 0 and p.pitch >= block_gs.SLICE * itemsize
+    assert p.rows % 4 == 0 and (p.groups - 1) * p.rows < block <= p.groups * p.rows
+    assert p.smem == block_gs.BAR_BYTES + p.xbufs * xtile + p.stages * stage
+    assert p.smem <= cap and 1 <= p.stages <= block_gs.MAX_STAGES
+    assert p.stages == block_gs.MAX_STAGES or p.smem + stage > cap
+    fits = block_gs.BAR_BYTES + p.per_cta * xtile + 2 * stage <= cap
+    assert p.xbufs == (p.per_cta if fits else 1)
+
+
+@pytest.mark.parametrize("const,value", [
+    ("kSlice", block_gs.SLICE), ("kRows", block_gs.ROWS),
+    ("kMaxCols", block_gs.MAX_COLS), ("kMaxStages", block_gs.MAX_STAGES),
+    ("kBarBytes", block_gs.BAR_BYTES), ("kDepth", block_gs.DEPTH),
+    ("kHeader", block_gs.HEADER)])
+def test_block_gs_constants_match_the_source(const, value):
+    """kernels/block_gs.py's copies of csrc/block_gs.cu's constants."""
+    src = (Path(block_gs.__file__).parents[1] / "csrc" / "block_gs.cu"
+           ).read_text()
+    m = re.search(rf"constexpr int {const} = (\d+);", src)
+    assert m is not None and int(m.group(1)) == value
+
+
+@pytest.mark.parametrize("n,block,k", [(16384, 128, 51), (3000, 20, 3),
+                                       (1536, 64, 70), (256, 1, 1)])
+def test_block_gs_scratch_holds_every_part(n, block, k):
+    """The scratch: the zeroed counters, then DEPTH steps of parts at
+    ((step % DEPTH, slice) * block + row) * k + column past them; the last
+    part is its last float."""
+    slices = -(-n // block_gs.SLICE)
+    last = max(block_gs.HEADER + ((d * slices + sl) * block + r) * k + c
+               for d in range(block_gs.DEPTH) for sl in (0, slices - 1)
+               for r in (0, block - 1) for c in (0, k - 1))
+    assert block_gs.scratch_floats(n, block, k) == last + 1
+
+
+@pytest.mark.parametrize("block,rows", [(1, 4), (2, 4), (19, 20), (20, 20),
+                                        (32, 32), (96, 32), (128, 32),
+                                        (256, 32)])
+def test_block_gs_plan_row_groups(block, rows):
+    """Units hold ROWS rows of the block, or the block rounded up to 4 rows
+    when it is smaller; at the main size each CTA owns two units."""
+    p = block_gs.plan(2048, block, 51, 4, **H100)
+    assert (p.rows, p.groups) == (rows, -(-block // rows))
+    main = block_gs.plan(16384, 128, 51, 4, **H100)
+    assert (main.rows, main.groups, main.units, main.grid, main.per_cta,
+            main.xbufs) == (block_gs.ROWS, 4, 256, 132, 2, 2)
+
+
+def test_block_gs_probe_parses_its_arguments():
+    args = block_gs_probe.parse_args(["--label", "C1", "--repeats", "3"])
+    assert (args.label, args.repeats) == ("C1", 3)
+    args = block_gs_probe.parse_args([])
+    assert (args.label, args.repeats) == ("", 5)
+    with pytest.raises(SystemExit):
+        block_gs_probe.parse_args(["--repeats", "0"])
+
+
+@pytest.mark.parametrize("variant", sorted(block_gs_segments.VARIANTS))
+def test_block_gs_segments_patches_the_source(variant):
+    """Each variant of tune/block_gs_segments.py finds every line it
+    patches in csrc/block_gs.cu exactly once, and adds the stamps' C
+    entries; the tool refuses a variant it does not know."""
+    src = (Path(block_gs.__file__).parents[1] / "csrc" / "block_gs.cu"
+           ).read_text()
+    out = block_gs_segments.patched(src, variant)
+    assert out.count("clock64()") == 5 and "block_gs_seg_get" in out
+    assert ("fmaf(avs[i][jj]" in out) == (variant in ("a_once", "no_loads"))
+    assert ("const int need = s;" in out) == (variant == "no_lookahead")
+    assert ("kRows = 64;" in out) == (variant == "rows64")
+    with pytest.raises(ValueError, match="does not hold"):
+        block_gs_segments.patched(src.replace("unit_parts(st,", "f(st,"),
+                                  variant)
+    with pytest.raises(SystemExit):
+        block_gs_segments.main(["--variants", "stamps,bogus"])

@@ -28,6 +28,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import banded_gs as banded_mod  # noqa: E402
 from repro_torch.kernels import bbmv as bbmv_mod  # noqa: E402
+from repro_torch.kernels import block_gs as block_gs_mod  # noqa: E402
 from repro_torch.kernels import colsum as colsum_mod  # noqa: E402
 from repro_torch.kernels import sweep_csr  # noqa: E402
 
@@ -284,7 +285,8 @@ def _c_entries(source: str) -> dict[str, int]:
 def _entry_cases():
     cases = []
     for module, source in ((sweep_csr, "sweep_csr"), (bbmv_mod, "bbmv"),
-                           (colsum_mod, "colsum"), (banded_mod, "banded_gs")):
+                           (colsum_mod, "colsum"), (banded_mod, "banded_gs"),
+                           (block_gs_mod, "block_gs")):
         for name, argtypes in module.C_ENTRIES.items():
             cases.append(pytest.param(source, name, argtypes,
                                       id=f"{source}-{name}"))
