@@ -28,14 +28,17 @@ blocks and block 256 beside the main path's 128), the dense block-GS
 sweep at blocks 2 to 256, ragged and unaligned n, two column tiles of x,
 x tiles reloaded at each step and the lookahead's worst pick streams, the
 column sums of the
-records against theirs, and the block-banded matvec at ragged shapes and
-at both column-tile widths.  It solves column 0 of each
+records against theirs, the block-banded matvec at ragged shapes and at
+both column-tile widths, and the two row-window matvecs (CSR sliced and
+ELL) at k = 1 to 70 on ragged operators, with the operators' per-row
+counts bitwise equal to without them.  It solves column 0 of each
 path alone and holds it bitwise to column 0 of the k = 51 solve.  It
 checks what comes out, shows from the
 launch counters (set to 0 just before each path and read just after) that
 each path ran its kernels and nothing else, and times each kernel beside
 its plain version, its roofline bound and, where one exists, a PyTorch
-library call computing the same function.
+library call computing the same function, launched from Python and
+replayed from a CUDA graph.
 
 The last lines of standard output are the card's name and power limit (as
 ``nvidia-smi`` gives them), one JSON object describing the kernels, and
@@ -141,6 +144,17 @@ BGS_CASES = (
     (16384, 128, "alternate", (51, 1), "two units a CTA"),
 )
 BGS_STREAM_STEPS = 40
+# The two row-window matvecs (csrc/common.cuh rw_kernel: spmv_csr_sliced
+# and spmv_ell) beyond the main path's k = 51: RW_KS columns (a warp spans
+# one to 32 rows) on ragged operators of RW_M x RW_N (the last panel of 8
+# not full) with rows of 0 to RW_WIDE and to RW_NARROW nonzeros,
+# rows_per_panel 1 (empty rows are empty panels) and 8, f32/i32 and
+# bf16/i16; ELL at its exact width, truncated to RW_NARROW, in bf16, and a
+# slab of RW_SLAB rows of a square RW_M operator (n_cols != rows); each
+# with the operator's per-row counts (the chains stopped after the first
+# padding slot) and without.
+RW_KS = (1, 3, 16, 31, 32, 33, 51, 64, 70)
+RW_M, RW_N, RW_WIDE, RW_NARROW, RW_SLAB = 3001, 2500, 70, 24, 700
 MONO_RTOL = 1e-6            # err_sq non-increasing up to this rounding
 RESID_RTOL = 1e-4           # kernel residual vs dense torch.matmul residual
 # The distributed Kaczmarz engine.  P = 1 in this process: sparse_rk on the
@@ -198,6 +212,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int):
+    """Mean milliseconds of ``fn()`` replayed from one CUDA graph of
+    ``calls`` calls: the card's time with the host's launch work taken out.
+    One warm-up call on a side stream first.  Every kernel entry needs this
+    time, so a capture that fails, or a launch that fails or faults under
+    the graph, raises and fails the phase."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, 3) / calls
+    del graph
+    return ms
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -343,6 +378,125 @@ def banded_beyond_main(torch, ops, launcher, ref_banded, blocks, bands_list,
                               f"equals column 0 at k={kmax}")
 
 
+def row_window_beyond_main(torch, ops, ref, spmv, main_csr, main_ell, x_main,
+                           gen, dev) -> None:
+    """The two row-window matvecs against their plain versions at RW_KS on
+    ragged operators, each with the operator's counts bitwise equal to
+    without them (the chains stopped after the first padding slot), the
+    sliced pair bitwise equal, column 0 at k = 51 bitwise equal to k = 1,
+    and the operators' counts equal to the stored layouts' (CSR row_nnz
+    and kernels/spmv_csr.py::row_extent of the sliced view; ELL min(count,
+    width))."""
+    from repro_torch.core.operators import CsrOp, EllOp
+    from repro_torch.tune.spmv_probe import ragged_dense
+
+    dense = {most: ragged_dense(RW_M, RW_N, gen, dev, most)
+             for most in (RW_WIDE, RW_NARROW)}
+    csr = {(R, sd, most): CsrOp.from_dense(A, rows_per_panel=R,
+                                           storage_dtype=sd)
+           for most, A in dense.items() for R in (1, 8)
+           for sd in (None, "bfloat16")}
+    sq = ragged_dense(RW_M, RW_M, gen, dev, RW_WIDE)
+    ells = {"exact": EllOp.from_dense(sq),
+            f"width {RW_NARROW}": EllOp.from_dense(sq, width=RW_NARROW),
+            "bf16": EllOp.from_dense(sq, storage_dtype="bfloat16")}
+    counts = (sq != 0).sum(1).to(torch.int32)
+    same = []
+    for (R, sd, most), op in csr.items():
+        vals, cols = op.sliced_rows()
+        same.append(torch.equal(spmv.row_extent(vals, cols)[:RW_M],
+                                op.row_counts())
+                    and bool((spmv.row_extent(vals, cols)[RW_M:] == 0).all()))
+    for name, op in ells.items():
+        same.append(torch.equal(op.row_counts(), counts.clamp(max=op.width)))
+    check(all(same), "row counts: CsrOp.row_counts() is row_extent of the "
+          "sliced view (0 past m) and EllOp.row_counts() min(count, width) "
+          f"on {len(same)} layouts")
+
+    def within(tag, y, want, scale):
+        err = (y - want).abs()
+        check(bool((err <= SPMV_RTOL * scale + SPMV_ATOL).all()),
+              f"{tag}: max|kernel - plain| = {float(err.max()):.3e} within "
+              f"{SPMV_RTOL:g}*(|A||x|) + {SPMV_ATOL:g}")
+
+    for k in RW_KS:
+        x = torch.randn((RW_N, k), generator=gen, device=dev)
+        xs = torch.randn((RW_M, k), generator=gen, device=dev)
+        for (R, sd, most), op in csr.items():
+            vals, cols = op.sliced_rows()
+            tag = (f"spmv_csr_sliced {'bf16/i16' if sd else 'f32/i32'} "
+                   f"{RW_M}x{RW_N} rows of <= {most} nonzeros (width "
+                   f"{vals.shape[1]}) rows_per_panel={R} k={k}")
+            kw = dict(m=RW_M, rows_per_panel=R)
+            y = ops.spmv_csr_sliced(vals, cols, x, counts=op.row_counts(),
+                                    **kw)
+            within(tag, y, ref.spmv_csr_sliced_ref(vals, cols, x, m=RW_M),
+                   ref.spmv_csr_sliced_ref(vals.abs(), cols, x.abs(), m=RW_M))
+            check(torch.equal(y, ops.spmv_csr_sliced(vals, cols, x, **kw)),
+                  f"{tag}: with the row counts bitwise equal to without")
+            yp = ops.spmv_csr_sliced_prefetch(vals, cols, op.panel_nnz(), x,
+                                              counts=op.row_counts(), **kw)
+            check(torch.equal(y, yp), f"{tag}: the predicated twin bitwise "
+                  f"equal ({int((op.panel_nnz() == 0).sum())} empty panels)")
+        for name, op in ells.items():
+            tag = f"spmv_ell {name} {RW_M} rows (width {op.width}) k={k}"
+            y = ops.spmv_ell(op.vals, op.cols, xs, counts=op.row_counts())
+            within(tag, y, ref.spmv_ell_ref(op.vals, op.cols, xs),
+                   ref.spmv_ell_ref(op.vals.abs(), op.cols, xs.abs()))
+            check(torch.equal(y, ops.spmv_ell(op.vals, op.cols, xs)),
+                  f"{tag}: with the row counts bitwise equal to without")
+        op = ells["exact"]
+        rows = slice(RW_SLAB, 2 * RW_SLAB)
+        sv, sc = op.vals[rows].contiguous(), op.cols[rows].contiguous()
+        within(f"spmv_ell slab of {RW_SLAB} rows of a {RW_M}-column "
+               f"operator k={k}", ops.spmv_ell(sv, sc, xs, n_cols=RW_M,
+                                               counts=op.row_counts()[rows]),
+               ref.spmv_ell_ref(sv, sc, xs),
+               ref.spmv_ell_ref(sv.abs(), sc, xs.abs()))
+    # x holding NaN, inf and -0 (the padding columns' rows too): with the
+    # row counts still bitwise equal to every slot chained
+    x = torch.randn((RW_N, 51), generator=gen, device=dev)
+    x[0], x[3, 5], x[7, 0], x[11, :4] = -0.0, float("nan"), float("inf"), -0.0
+    xs = torch.randn((RW_M, 51), generator=gen, device=dev)
+    xs[:100], xs[200, 3] = -0.0, float("-inf")
+    op = csr[(8, None, RW_WIDE)]
+    vals, cols = op.sliced_rows()
+    kw = dict(m=RW_M, rows_per_panel=8)
+    ell = ells["exact"]
+    def bits(t):
+        return t.view(torch.int32)
+
+    check(torch.equal(bits(ops.spmv_csr_sliced(vals, cols, x,
+                                               counts=op.row_counts(), **kw)),
+                      bits(ops.spmv_csr_sliced(vals, cols, x, **kw)))
+          and torch.equal(bits(ops.spmv_ell(ell.vals, ell.cols, xs,
+                                            counts=ell.row_counts())),
+                          bits(ops.spmv_ell(ell.vals, ell.cols, xs))),
+          "spmv_csr_sliced and spmv_ell on x with NaN, inf and -0: with the "
+          "row counts bitwise equal to without")
+    # column 0 at k = 51 against k = 1, on the main operators and ragged ones
+    x51 = torch.randn((RW_N, 51), generator=gen, device=dev)
+    xs51 = torch.randn((RW_M, 51), generator=gen, device=dev)
+    cases = [("SPD main", main_csr, x_main)] + [
+        (f"rows of <= {most}", csr[(8, None, most)], x51)
+        for most in (RW_WIDE, RW_NARROW)]
+    for tag, op, x in cases:
+        vals, cols = op.sliced_rows()
+        kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
+                  counts=op.row_counts())
+        full = ops.spmv_csr_sliced(vals, cols, x, **kw)
+        one = ops.spmv_csr_sliced(vals, cols, x[:, :1].contiguous(), **kw)
+        check(torch.equal(one[:, 0], full[:, 0]),
+              f"spmv_csr_sliced {tag}: column 0 at k=51 bitwise equals k=1")
+    for tag, op, x in (("SPD main", main_ell, x_main),
+                       ("ragged", ells["exact"], xs51)):
+        full = ops.spmv_ell(op.vals, op.cols, x, counts=op.row_counts())
+        one = ops.spmv_ell(op.vals, op.cols, x[:, :1].contiguous(),
+                           counts=op.row_counts())
+        check(torch.equal(one[:, 0], full[:, 0]),
+              f"spmv_ell {tag}: column 0 at k=51 bitwise equals k=1")
+
+
 def block_gs_beyond_main(torch, ops, launcher, ref, gen, dev) -> None:
     """The dense block-GS sweep on ``BGS_CASES``, f32 and bf16 A: each k
     against its plain version and two runs bitwise, column 0 at k = 1
@@ -436,6 +590,7 @@ def main() -> int:
                                          sweep_csr)
         from repro_torch.kernels import banded_gs as _banded
         from repro_torch.kernels import bbmv as _bbmv
+        from repro_torch.kernels import spmv_csr as _spmv
         from repro_torch.kernels import block_gs as _block_gs
         from repro_torch.launch.mesh import process_group, run_workers
         from repro_torch.tune import TuningTable, runtime, use_table
@@ -601,12 +756,15 @@ def main() -> int:
             "sliced": (
                 "spmv_csr_sliced",
                 lambda: ops.spmv_csr_sliced(vals, cols, x, m=m,
-                                            rows_per_panel=R),
+                                            rows_per_panel=R,
+                                            counts=op.stop_counts(
+                                                x.shape[1])),
                 lambda: ref.spmv_csr_sliced_ref(vals, cols, x, m=m)),
             "sliced_prefetch": (
                 "spmv_csr_sliced_prefetch",
-                lambda: ops.spmv_csr_sliced_prefetch(vals, cols, pn, x, m=m,
-                                                     rows_per_panel=R),
+                lambda: ops.spmv_csr_sliced_prefetch(
+                    vals, cols, pn, x, m=m, rows_per_panel=R,
+                    counts=op.stop_counts(x.shape[1])),
                 lambda: ref.spmv_csr_sliced_prefetch_ref(
                     vals, cols, pn, x, m=m, rows_per_panel=R)),
             "segsum": (
@@ -755,8 +913,8 @@ def main() -> int:
     spmv_check("bf16/i32", big, xb, "segsum")
     spmv_check("bf16/i32", big, xb, "segsum_prefetch")
 
-    def ell_check(tag, vals, cols, x):
-        y = ops.spmv_ell(vals, cols, x)
+    def ell_check(tag, vals, cols, x, counts):
+        y = ops.spmv_ell(vals, cols, x, counts=counts)
         want = ref.spmv_ell_ref(vals, cols, x)
         torch.cuda.synchronize()
         scale = ref.spmv_ell_ref(vals.abs(), cols, x.abs())
@@ -767,7 +925,19 @@ def main() -> int:
         return y, float(err.max())
 
     bv, bc = big.padded_rows()
-    ell_check("bf16/i32 n=40000", bv, bc, xb)
+    ell_check("bf16/i32 n=40000", bv, bc, xb, big.row_counts())
+    row_window_beyond_main(torch, ops, ref, _spmv, ops_by[("spd", None)],
+                           ops_by[("ell", None)], x_spd,
+                           torch.Generator(dev).manual_seed(SEED + 19), dev)
+    stops = {key: ops_by[key].stop_counts(K) is not None
+             for key in (("spd", None), ("lsq", None), ("holes", None),
+                         ("ell", None))}
+    check(stops == {("spd", None): True, ("lsq", None): False,
+                    ("holes", None): False, ("ell", None): True},
+          "the main operators' matvecs stop each row where at least "
+          f"{_spmv.STOP_PADDING_SHARE:g} of the slots are padding: SPD CSR "
+          "and ELL do, the LSQ design and its empty-panel variant (no or "
+          f"little padding) do not ({stops})")
 
     # The GS sweep's two paths.  At n = SPD_N the iterate fits shared
     # memory, so the checks above ran the shared-memory path; the global
@@ -1015,7 +1185,7 @@ def main() -> int:
         op = ops_by[("ell", sd)]
         _, errs[("spmv_ell", sd)] = ell_check(
             f"{tag} n={SPD_N} width={ell_width} k={K}", op.vals, op.cols,
-            x_spd)
+            x_spd, op.row_counts())
 
         tag = "f32" if sd is None else "bf16"
         op = ops_by[("banded", sd)]
@@ -1678,6 +1848,7 @@ def main() -> int:
     def sweep_entry(name, op, run, run_plain, picks, per_pick_flops,
                     extra_bytes_per_pick, source_line, carries=1, **extra):
         ms = cuda_ms(run, 10)
+        g_ms = graph_ms(run, 10)
         plain = cuda_ms(run_plain, 1)
         nnz_r = op.row_nnz[picks.long()].double()
         k = K
@@ -1695,7 +1866,8 @@ def main() -> int:
             source="src/repro_torch/csrc/sweep_csr.cu",
             replaces=source_line, launches=launches[name],
             max_abs_err=errs[(name, None)], ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=by, library_ms=None, **extra))
+            bound_ms=b_ms, bound_by=by, library_ms=None, graph_ms=g_ms,
+            **extra))
 
     # sweep_rows_gs: "ms" is the shared-memory path the wrapper takes at
     # this n, "global_ms" the global path on the same inputs (the bare
@@ -1838,9 +2010,10 @@ def main() -> int:
     def spmv_entry(variant, op, x, err=None, source_line=None):
         """Time a CSR matvec kernel on ``op`` beside its bound.  Bytes:
         each stored nonzero's value and index, and its row id for the
-        segment sum (padding slots carry nothing this run needs), x once,
-        y once, and panel_nnz for the predicated twins; flops: 2 per
-        nonzero per column.  With ``source_line`` it also times the plain
+        segment sum (padding slots carry nothing this run needs), the
+        per-row counts where the sliced pair is given them, x once, y
+        once, and panel_nnz for the predicated twins; flops: 2 per nonzero
+        per column.  With ``source_line`` it also times the plain
         version and the library yardstick (torch.sparse.mm on CSR) and
         returns the kernel's entry of the JSON line."""
         name, run, plain = csr_matvec(op, x, variant)
@@ -1852,6 +2025,8 @@ def main() -> int:
             nbytes += op.nnz * 4
         if variant.endswith("_prefetch"):
             nbytes += op.panel_nnz().numel() * 4
+        if variant.startswith("sliced") and op.stop_counts(k) is not None:
+            nbytes += op.shape[0] * 4
         b_ms, by = bound_ms(nbytes, 2.0 * op.nnz * k)
         head = f"  {name} {op.shape} nnz={op.nnz}: {ms:.4f} ms"
         if source_line is None:
@@ -1868,7 +2043,7 @@ def main() -> int:
                     source="src/repro_torch/csrc/spmv_csr.cu",
                     replaces=source_line, launches=launches[name],
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, library_ms=lib_ms)
+                    bound_by=by, library_ms=lib_ms, graph_ms=graph_ms(run, 50))
 
     lines.append(spmv_entry("sliced", ops_by[("spd", None)], x_spd,
                             errs[("spmv_csr_sliced", None, "spd")],
@@ -1880,10 +2055,12 @@ def main() -> int:
 
     # ELL matvec: the SPD problem's ELL operator; its library yardstick is
     # torch.sparse.mm on CSR over the same nonzeros.  Bytes: the stored
-    # windows (every slot is read), x once, y once; flops: 2 per nonzero
-    # per column.
+    # entries' values and indices (the kernel stops each row after its
+    # first padding slot, and the padding carries nothing this run needs),
+    # the per-row counts, x once, y once; flops: 2 per nonzero per column.
     op = ops_by[("ell", None)]
-    run = functools.partial(ops.spmv_ell, op.vals, op.cols, x_spd)
+    run = functools.partial(ops.spmv_ell, op.vals, op.cols, x_spd,
+                            counts=op.stop_counts(K))
     ms = cuda_ms(run, 50)
     plain_ms = cuda_ms(functools.partial(ref.spmv_ell_ref, op.vals, op.cols,
                                          x_spd), 5)
@@ -1892,8 +2069,9 @@ def main() -> int:
           "spmv_ell: torch.sparse.mm agrees with the kernel")
     lib_ms = cuda_ms(lib, 50)
     nnz = ops_by[("spd", None)].nnz
-    b_ms, by = bound_ms(op.vals.numel() * (val_b + idx_b) + 2 * SPD_N * K * 4,
-                        2.0 * nnz * K)
+    stored = int(op.row_counts().sum())
+    b_ms, by = bound_ms(stored * (val_b + idx_b) + SPD_N * 4
+                        + 2 * SPD_N * K * 4, 2.0 * nnz * K)
     print(f"  spmv_ell n={SPD_N} width={ell_width} nnz={nnz}: {ms:.4f} ms; "
           f"plain {plain_ms:.4f} ms; torch.sparse.mm {lib_ms:.4f} ms; bound "
           f"{b_ms:.5f} ms ({by})", flush=True)
@@ -1903,7 +2081,7 @@ def main() -> int:
                       launches=launches["spmv_ell"],
                       max_abs_err=errs[("spmv_ell", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms))
+                      library_ms=lib_ms, graph_ms=graph_ms(run, 50)))
 
     # bbmv: the banded operator's tiles.  Bytes: the tiles inside the
     # matrix (the kernel never reads the others), x once, y once; flops:
@@ -1945,7 +2123,7 @@ def main() -> int:
                       launches=launches["bbmv"],
                       max_abs_err=errs[("bbmv", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms))
+                      library_ms=lib_ms, graph_ms=graph_ms(run, 50)))
 
     # banded_gs_sweep: one main-path chunk (nb picks).  Bytes, by the
     # sweeps' rule: per pick its 2*bands+1 tiles, its b block and its id,
@@ -1958,6 +2136,7 @@ def main() -> int:
     run = functools.partial(ops.banded_gs_sweep, packed, banded.b, xw_band,
                             band_picks, block=BLOCK, bands=BANDS)
     ms = cuda_ms(run, 10)
+    g_ms = graph_ms(run, 10)
     global_ms = cuda_ms(functools.partial(
         _banded.banded_gs_sweep, packed, banded.b, xw_band, band_picks32,
         block=BLOCK, bands=BANDS, beta=1.0, limit=nb, _shared=False), 10)
@@ -1977,7 +2156,7 @@ def main() -> int:
                       launches=launches["banded_gs_sweep"],
                       max_abs_err=errs[("banded_gs_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=None, global_ms=global_ms))
+                      library_ms=None, graph_ms=g_ms, global_ms=global_ms))
 
     # banded_rk_sweep: the P = 4 check round (rank 1's window, mixed
     # gates) and one P = 1 main-path round (nb picks, every gate 1, on the
@@ -1998,6 +2177,7 @@ def main() -> int:
     run = functools.partial(ops.banded_rk_sweep, *args, xw, dw_band, lic,
                             gates, block=BLOCK, bands=BANDS)
     ms = cuda_ms(run, 10)
+    g_ms = graph_ms(run, 10)
     global_ms = cuda_ms(functools.partial(
         _banded.banded_rk_sweep, *args, xw, dw_band, lic32, gates,
         block=BLOCK, bands=BANDS, beta=1.0, limit=nb_local, _shared=False),
@@ -2034,7 +2214,8 @@ def main() -> int:
                       launches=launches["banded_rk_sweep"],
                       max_abs_err=errs[("banded_rk_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=None, global_ms=global_ms, p1_ms=ms_p1,
+                      library_ms=None, graph_ms=g_ms, global_ms=global_ms,
+                      p1_ms=ms_p1,
                       p1_global_ms=global_p1, p1_bound_ms=b_p1,
                       p1_bound_by=by_p1))
 
@@ -2048,6 +2229,7 @@ def main() -> int:
     run = functools.partial(ops.block_gs_sweep, A_dense, banded.b, x_band,
                             dense_picks, block=BLOCK)
     ms = cuda_ms(run, 5)
+    block_gs_run = run      # replayed from a graph last (below)
     A_bf16 = A_dense.to(torch.bfloat16)
     ms_bf16 = cuda_ms(functools.partial(ops.block_gs_sweep, A_bf16, banded.b,
                                         x_band, dense_picks, block=BLOCK), 5)
@@ -2121,28 +2303,10 @@ def main() -> int:
     b_ms, by = bound_ms(t_rec.numel() * 4 + K * 4, float(t_rec.numel()))
     print(f"  colsum n={SPD_N} k={K}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
           f"torch.sum {lib_ms:.4f} ms; bound {b_ms:.5f} ms ({by})", flush=True)
-    # The same calls replayed from one CUDA graph of 50: the card's time
-    # a call with the host's launch work taken out, which says whether the
-    # kernels or the launch from Python set the times above.
-    for tag, fn in (("colsum", functools.partial(ops.colsum, t_rec)),
-                    ("torch.sum", functools.partial(torch.sum, t_rec, 0))):
-        try:
-            graph = torch.cuda.CUDAGraph()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream().wait_stream(side)
-            with torch.cuda.graph(graph):
-                for _ in range(50):
-                    fn()
-            g_ms = cuda_ms(graph.replay, 5) / 50
-            print(f"  {tag} n={SPD_N} k={K} from a CUDA graph: {g_ms:.4f} "
-                  "ms a call", flush=True)
-            del graph
-        except RuntimeError as e:
-            print(f"  {tag} from a CUDA graph: not measured ({e})",
-                  flush=True)
+    colsum_graph = graph_ms(functools.partial(ops.colsum, t_rec), 50)
+    lib_graph = graph_ms(functools.partial(torch.sum, t_rec, 0), 50)
+    print(f"  torch.sum n={SPD_N} k={K} from a CUDA graph: {lib_graph:.4f} ms",
+          flush=True)
     lines.append(dict(name="colsum", route="cuda",
                       source="src/repro_torch/csrc/colsum.cu",
                       replaces="none: a kernel of the port's own (the record "
@@ -2150,7 +2314,21 @@ def main() -> int:
                       "Pallas kernel)",
                       launches=launches["colsum"], max_abs_err=errs["colsum"],
                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms))
+                      library_ms=lib_ms, graph_ms=colsum_graph))
+
+    # Each kernel's call replayed from one CUDA graph ("graph_ms", taken
+    # beside "ms" above): the card's time with the host's launch work (the
+    # checks in kernels/ops.py, the ctypes call, the output's allocation)
+    # taken out.  The dense block-GS sweep, one cooperative launch, is
+    # captured last.
+    print("== timing from CUDA graphs", flush=True)
+    for entry in lines:
+        if entry["name"] == "block_gs_sweep":
+            entry["graph_ms"] = graph_ms(block_gs_run, 5)
+        g = entry["graph_ms"]
+        print(f"  {entry['name']}: {entry['ms']:.4f} ms from Python, "
+              f"{g:.4f} ms from a graph ({100 * g / entry['ms']:.0f}% of it "
+              "the card's)", flush=True)
 
     left = live_children()
     check(not left, "no process this run started is still running "

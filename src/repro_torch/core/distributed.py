@@ -183,6 +183,8 @@ def _sparse_rk(op, b, x0, xs, *, group, rank, num_workers, rounds,
     rows = slice(rank * slab, (rank + 1) * slab)
     vals, cols = op.padded_rows()
     vals_sh, cols_sh = vals[rows], cols[rows]
+    counts = op.stop_counts(k)
+    counts_sh = None if counts is None else counts[rows]
     b_sh = b[rows]
     rn_sh = op.row_norms_sq()[rows]
     rn_safe = torch.where(rn_sh > 0, rn_sh, 1.0)
@@ -198,7 +200,8 @@ def _sparse_rk(op, b, x0, xs, *, group, rank, num_workers, rounds,
     cols_own = slice(rank * cs, (rank + 1) * cs) if cs is not None else None
 
     def metrics(x):
-        r = b_sh - ops.spmv_ell(vals_sh, cols_sh, x, n_cols=n)
+        r = b_sh - ops.spmv_ell(vals_sh, cols_sh, x, n_cols=n,
+                                counts=counts_sh)
         parts = [ops.colsum(r * r)]
         if xs is not None and cs is not None:
             e = x[cols_own] - xs[cols_own]

@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.spd import ell_from_dense
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bbmv import dense_to_bands, pack_bands_local
+from repro_torch.kernels.spmv_csr import row_extent, worth_stopping
 from repro_torch.tune import runtime as tune_runtime
 from repro_torch.tune.table import MATVEC_VARIANTS
 
@@ -232,6 +233,8 @@ class EllOp:
     def __init__(self, vals: torch.Tensor, cols: torch.Tensor):
         self.vals = vals
         self.cols = cols
+        self._row_counts = None
+        self._stored = None
 
     @classmethod
     def from_dense(cls, A: torch.Tensor, *, width: int | None = None,
@@ -264,9 +267,30 @@ class EllOp:
     def device(self) -> torch.device:
         return self.vals.device
 
+    def row_counts(self) -> torch.Tensor:
+        """Per-row count of stored entries, (n,) int32 on the device:
+        min(count, width), the slots before each row's padding
+        (``kernels/spmv_csr.py::row_extent``), computed once."""
+        if self._row_counts is None:
+            self._row_counts = row_extent(self.vals, self.cols)
+        return self._row_counts
+
+    def stop_counts(self, k: int) -> torch.Tensor | None:
+        """``row_counts()`` where a matvec with k columns stops each row
+        (``kernels/spmv_csr.py::worth_stopping``), else None; the count
+        of stored entries is taken once."""
+        if self._stored is None:
+            self._stored = int(self.row_counts().sum())
+        rows, width = self.vals.shape
+        return (self.row_counts()
+                if worth_stopping(rows, width, self._stored, k) else None)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """``A @ x`` through the ELL matvec kernel."""
-        return ops.spmv_ell(self.vals, self.cols, x)
+        """``A @ x`` through the ELL matvec kernel, each row's chain
+        stopped after its first padding slot where that pays (bitwise the
+        same either way)."""
+        return ops.spmv_ell(self.vals, self.cols, x,
+                            counts=self.stop_counts(x.shape[1]))
 
     def row_norms_sq(self) -> torch.Tensor:
         """Per-row ||A_i||² — always f32."""
@@ -497,8 +521,25 @@ class CsrOp:
         m, R = self._shape[0], self.rows_per_panel
         if variant == "sliced_prefetch":
             return ops.spmv_csr_sliced_prefetch(vals, cols, self.panel_nnz(),
-                                                x, m=m, rows_per_panel=R)
-        return ops.spmv_csr_sliced(vals, cols, x, m=m, rows_per_panel=R)
+                                                x, m=m, rows_per_panel=R,
+                                                counts=self.stop_counts(
+                                                    x.shape[1]))
+        return ops.spmv_csr_sliced(vals, cols, x, m=m, rows_per_panel=R,
+                                   counts=self.stop_counts(x.shape[1]))
+
+    def row_counts(self) -> torch.Tensor:
+        """Per-row stored-nonzero counts, (m,) int32 on the device: the
+        slots before each row's padding in ``padded_rows()`` and
+        ``sliced_rows()``."""
+        return self.row_nnz
+
+    def stop_counts(self, k: int) -> torch.Tensor | None:
+        """``row_counts()`` where a matvec with k columns over the sliced
+        view stops each row (``kernels/spmv_csr.py::worth_stopping``; the
+        kernel computes rows [0, m) only), else None."""
+        width = -(-self.row_cap // 8) * 8
+        return (self.row_nnz if worth_stopping(self._shape[0], width,
+                                               self.nnz, k) else None)
 
     def matvec_segsum(self, x: torch.Tensor, *,
                       skip_empty: bool = False) -> torch.Tensor:

@@ -9,21 +9,42 @@
 // prefetch variant also takes panel_nnz (num_panels,) and writes zeros for
 // the rows of panels that hold no nonzero.
 //
-// What bounds it.  About 2 flops per stored byte of the window at k = 1 and
-// 2k per window slot overall: far below the card's f32 rate, so the bound
-// is bytes (the windows, x once, y once).  The x gathers are random rows of
-// x; at the main-path sizes x fits in L2.
+// What bounds it.  2k flops per stored nonzero against 8 bytes of window
+// (f32 values, int32 ids): far below the card's f32 rate, so the HBM bound
+// is bytes (the nonzeros, x once, y once).  Above that floor sit the x
+// gathers: every stored nonzero reads a whole row of x (4k bytes, 204 at
+// k = 51, in 7 or 8 sectors of 32 bytes) from L2, about 10x the HBM bytes
+// at the main path's sizes, with few L1 hits when x is much larger than
+// L1 (the columns are random).  tune/spmv_probe.py times a gather-only
+// copy of this kernel and, apart from this layout, a kernel that only
+// gathers the same rows of x (one warp a row): on the main SPD view this
+// kernel takes 1.01x the first and 1.06x the second, so the gathers may
+// set its time; that L2's rate is what limits them is a hypothesis the
+// card's counters would have to confirm (PERF.md).
 //
-// Design.  One thread per output element (row r, column c), neighbouring
-// threads on neighbouring c, so the gathers x[cols[r,w], c] of a warp
-// coalesce along the row of x and the window reads broadcast.  Each thread
-// contracts its row window in slot order with fmaf (slot_dot in
-// common.cuh, shared with the ELL matvec), so the result does not
-// depend on the launch shape.  The predicated variant calls the same device
-// function and writes zeros for empty panels, so the two kernels are
-// bitwise equal by construction (the TPU pair reduced in different tile
-// orders and were not; ROADMAP queue 3 fault b).  The 128-row tile padding
-// of the TPU wrapper is not carried over: rows >= m are never launched.
+// Design (rw_kernel in common.cuh, shared with the ELL matvec).  One
+// thread an output (row r, column c), neighbouring threads on
+// neighbouring c, so a warp's gathers read contiguous runs of a row of x
+// and its window reads broadcast (L1 hits after the first of the row's
+// warps).  Given the operator's count of each row's stored nonzeros
+// (`counts`), a row's chain stops after its first padding slot (rw_stop's
+// note: the bits are those of every slot chained), the first 4 slots'
+// loads go out ahead of the count's, and indices are 32-bit: 41% of the
+// main SPD view's slots are padding, each a gather and an fmaf.  Without
+// counts the kernel chains every slot with the first port's loop.  The
+// operators pass counts only where at least a quarter of their slots are
+// padding and rows x k stays below 2^32 (kernels/spmv_csr.py::
+// worth_stopping): on a layout without
+// padding the count's load ahead of each chain cost 14%.  Each output
+// stays one fmaf chain over its row's slots in slot order from +0, so the
+// result is bitwise the first port's for every x, does not depend on k,
+// and the predicated variant, the same kernel with panel_nnz, is bitwise
+// equal to the plain one.  Whole rows a warp (lanes on columns, the
+// window loaded once and broadcast from shared memory or registers, up to
+// 16 gathers a lane in flight) ran slower on every layout tried: 0.024
+// ms on both main shapes where this mapping takes 0.017 on the LSQ design
+// (PERF.md).  The 128-row tile padding of the TPU wrapper is not
+// carried over: rows >= m are never computed.
 //
 // The segment-sum pair replaces src/repro/kernels/spmv_csr.py::spmv_csr and
 // ::spmv_csr_prefetch, which read the flat layout itself: panel p owns slots
@@ -51,31 +72,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-template <typename V, typename I>
-__global__ void __launch_bounds__(kThreads)
-    sliced_kernel(const V* __restrict__ vals, const I* __restrict__ cols,
-                  const float* __restrict__ x, float* __restrict__ y, int m, int width, int k) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)m * k) return;
-  const int r = (int)(t / k), c = (int)(t % k);
-  y[t] = slot_dot(vals + (size_t)r * width, cols + (size_t)r * width, x, width, k, c);
-}
-
-template <typename V, typename I>
-__global__ void __launch_bounds__(kThreads)
-    sliced_prefetch_kernel(const V* __restrict__ vals, const I* __restrict__ cols,
-                           const int* __restrict__ panel_nnz, const float* __restrict__ x,
-                           float* __restrict__ y, int m, int width, int k, int rows_per_panel) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)m * k) return;
-  const int r = (int)(t / k), c = (int)(t % k);
-  y[t] = panel_nnz[r / rows_per_panel] > 0
-             ? slot_dot(vals + (size_t)r * width, cols + (size_t)r * width, x, width, k, c)
-             : 0.f;
-}
 
 constexpr int kSegThreads = 128;
 constexpr int kSegOpt = 4;    // outputs per thread per pass over the slots
@@ -170,36 +166,25 @@ __global__ void __launch_bounds__(kSegThreads)
   for (int o = threadIdx.x; o < outputs; o += kSegThreads) y[(size_t)row0 * k + o] = 0.f;
 }
 
-inline dim3 grid_for(int m, int k) {
-  return dim3((unsigned)(((long long)m * k + kThreads - 1) / kThreads));
-}
-
 }  // namespace
 
-#define SLICED_ENTRY(NAME, V, I)                                                            \
-  extern "C" int NAME(const void* vals, const void* cols, const void* x, void* y, int m,   \
-                      int width, int k, void* stream) {                                     \
-    sliced_kernel<V, I><<<grid_for(m, k), kThreads, 0, (cudaStream_t)stream>>>(            \
-        (const V*)vals, (const I*)cols, (const float*)x, (float*)y, m, width, k);          \
-    return (int)cudaGetLastError();                                                         \
+#define SLICED_ENTRY(SFX, V, I)                                                            \
+  extern "C" int spmv_csr_sliced_##SFX(const void* vals, const void* cols, const void* counts, \
+                                       const void* x, void* y, int m, int width, int k,      \
+                                       void* stream) {                                       \
+    return rw_launch<V, I>(vals, cols, counts, nullptr, 1, x, y, m, width, k,                \
+                           (cudaStream_t)stream);                                           \
+  }                                                                                         \
+  extern "C" int spmv_csr_sliced_prefetch_##SFX(                                             \
+      const void* vals, const void* cols, const void* counts, const void* panel_nnz,         \
+      const void* x, void* y, int m, int width, int k, int rows_per_panel, void* stream) {   \
+    return rw_launch<V, I>(vals, cols, counts, panel_nnz, rows_per_panel, x, y, m, width, k, \
+                           (cudaStream_t)stream);                                           \
   }
 
-#define PREFETCH_ENTRY(NAME, V, I)                                                          \
-  extern "C" int NAME(const void* vals, const void* cols, const void* panel_nnz,           \
-                      const void* x, void* y, int m, int width, int k, int rows_per_panel,  \
-                      void* stream) {                                                       \
-    sliced_prefetch_kernel<V, I><<<grid_for(m, k), kThreads, 0, (cudaStream_t)stream>>>(   \
-        (const V*)vals, (const I*)cols, (const int*)panel_nnz, (const float*)x, (float*)y, \
-        m, width, k, rows_per_panel);                                                       \
-    return (int)cudaGetLastError();                                                         \
-  }
-
-SLICED_ENTRY(spmv_csr_sliced_f32_i32, float, int32_t)
-SLICED_ENTRY(spmv_csr_sliced_bf16_i16, __nv_bfloat16, int16_t)
-SLICED_ENTRY(spmv_csr_sliced_bf16_i32, __nv_bfloat16, int32_t)
-PREFETCH_ENTRY(spmv_csr_sliced_prefetch_f32_i32, float, int32_t)
-PREFETCH_ENTRY(spmv_csr_sliced_prefetch_bf16_i16, __nv_bfloat16, int16_t)
-PREFETCH_ENTRY(spmv_csr_sliced_prefetch_bf16_i32, __nv_bfloat16, int32_t)
+SLICED_ENTRY(f32_i32, float, int32_t)
+SLICED_ENTRY(bf16_i16, __nv_bfloat16, int16_t)
+SLICED_ENTRY(bf16_i32, __nv_bfloat16, int32_t)
 
 #define SEGSUM_ENTRY(NAME, V, I)                                                             \
   extern "C" int NAME(const void* data, const void* indices, const void* row_id,            \

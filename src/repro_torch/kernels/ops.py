@@ -174,39 +174,65 @@ def sweep_rows_rk_delta(vals, cols, b, rn, x, d, picks, *, beta=1.0):
                                        beta=beta)
 
 
-def _check_spmv(name, vals, cols, x, m, rows_per_panel):
+def _check_counts(name, counts, rows: int, x, k: int):
+    """The per-row counts of a row-window matvec: None, or int32 (rows,)
+    on x's device.  The kernel that takes them indexes outputs in 32
+    bits."""
+    if counts is None:
+        return
+    if rows * k >= 2 ** 32:
+        raise ValueError(f"{name}: {rows} x {k} outputs, the kernel with "
+                         "counts takes fewer than 2^32")
+    if (counts.dtype != torch.int32 or counts.shape != (rows,)
+            or counts.device != x.device or not counts.is_contiguous()):
+        raise ValueError(f"{name}: counts must be contiguous int32 of shape "
+                         f"({rows},) on {x.device}, got {counts.dtype} "
+                         f"{tuple(counts.shape)} on {counts.device}")
+
+
+def _check_spmv(name, vals, cols, x, m, rows_per_panel, counts):
     _check_windows(name, vals, cols)
     _check_f32(name, x=x)
     num_panels = -(-m // rows_per_panel)
     if vals.shape[0] != num_panels * rows_per_panel or x.ndim != 2:
         raise ValueError(f"{name}: vals has {vals.shape[0]} rows, expected "
                          f"{num_panels} panels of {rows_per_panel}")
+    _check_counts(name, counts, m, x, x.shape[1])
     return num_panels
 
 
-def spmv_csr_sliced(vals, cols, x, *, m, rows_per_panel):
+def spmv_csr_sliced(vals, cols, x, *, m, rows_per_panel, counts=None):
     """``y = A @ x`` (m, k) f32 from the sliced-ELL view
-    (``CsrOp.sliced_rows()``)."""
+    (``CsrOp.sliced_rows()``).
+
+    ``counts`` (int32 (m,), ``CsrOp.row_nnz``) lets the kernel stop each
+    row's chain after its first padding slot; every slot at or past
+    ``counts[r]`` must hold the value +0 and the column of the row's last
+    slot (``kernels/spmv_csr.py::row_extent``).  The result is then
+    bitwise the same as without them, for any x.  The plain version reads
+    every slot."""
     name = "spmv_csr_sliced"
     cuda = _on_cuda(name, vals, cols, x)
-    _check_spmv(name, vals, cols, x, m, rows_per_panel)
+    _check_spmv(name, vals, cols, x, m, rows_per_panel, counts)
     if cuda:
-        return _spmv_csr.spmv_csr_sliced(vals, cols, x, m=m)
+        return _spmv_csr.spmv_csr_sliced(vals, cols, x, m=m, counts=counts)
     return ref.spmv_csr_sliced_ref(vals, cols, x, m=m)
 
 
-def spmv_csr_sliced_prefetch(vals, cols, panel_nnz, x, *, m, rows_per_panel):
+def spmv_csr_sliced_prefetch(vals, cols, panel_nnz, x, *, m, rows_per_panel,
+                             counts=None):
     """``spmv_csr_sliced`` with the rows of empty panels (``panel_nnz ==
     0``) written as zeros; bitwise equal to it."""
     name = "spmv_csr_sliced_prefetch"
     cuda = _on_cuda(name, vals, cols, panel_nnz, x)
-    num_panels = _check_spmv(name, vals, cols, x, m, rows_per_panel)
+    num_panels = _check_spmv(name, vals, cols, x, m, rows_per_panel, counts)
     if panel_nnz.shape != (num_panels,) or panel_nnz.dtype != torch.int32:
         raise ValueError(f"{name}: panel_nnz must be int32 of shape "
                          f"({num_panels},)")
     if cuda:
         return _spmv_csr.spmv_csr_sliced_prefetch(
-            vals, cols, panel_nnz, x, m=m, rows_per_panel=rows_per_panel)
+            vals, cols, panel_nnz, x, m=m, rows_per_panel=rows_per_panel,
+            counts=counts)
     return ref.spmv_csr_sliced_prefetch_ref(vals, cols, panel_nnz, x, m=m,
                                             rows_per_panel=rows_per_panel)
 
@@ -268,14 +294,17 @@ def spmv_csr_prefetch(data, indices, row_id, panel_nnz, x, *, m,
                                             x, **kw)
 
 
-def spmv_ell(vals, cols, x, *, n_cols: int | None = None):
+def spmv_ell(vals, cols, x, *, n_cols: int | None = None, counts=None):
     """``y = A @ x`` (rows, k) f32 from row windows vals/cols (rows, width)
     with global column ids; x: (n_cols, k) f32.
 
     ``n_cols`` is the column count of the operator the windows come from
     (its column ids lie in [0, n_cols)): ``None`` for a square ELL
     operator (n_cols = rows), the operator's ``shape[1]`` for a slab of
-    its padded rows (the distributed engine's residual)."""
+    its padded rows (the distributed engine's residual).  ``counts``
+    (int32 (rows,), ``row_counts()`` of the operator) lets the kernel stop
+    each row's chain after its first padding slot, as in
+    ``spmv_csr_sliced``; the result is bitwise the same."""
     name = "spmv_ell"
     cuda = _on_cuda(name, vals, cols, x)
     _check_windows(name, vals, cols)
@@ -284,8 +313,9 @@ def spmv_ell(vals, cols, x, *, n_cols: int | None = None):
     if x.ndim != 2 or x.shape[0] != n_cols:
         raise ValueError(f"{name}: x {tuple(x.shape)} does not fit "
                          f"{n_cols} columns")
+    _check_counts(name, counts, vals.shape[0], x, x.shape[1])
     if cuda:
-        return _spmv_ell.spmv_ell(vals, cols, x)
+        return _spmv_ell.spmv_ell(vals, cols, x, counts=counts)
     return ref.spmv_ell_ref(vals, cols, x)
 
 
