@@ -31,7 +31,9 @@ column sums of the
 records against theirs, the block-banded matvec at ragged shapes and at
 both column-tile widths, and the two row-window matvecs (CSR sliced and
 ELL) at k = 1 to 70 on ragged operators, with the operators' per-row
-counts bitwise equal to without them.  It solves column 0 of each
+counts bitwise equal to without them, and the two segment sums there and
+on layouts whose panel 0 ends in padding, is filled exactly or is
+empty.  It solves column 0 of each
 path alone and holds it bitwise to column 0 of the k = 51 solve.  It
 checks what comes out, shows from the
 launch counters (set to 0 just before each path and read just after) that
@@ -497,6 +499,67 @@ def row_window_beyond_main(torch, ops, ref, spmv, main_csr, main_ell, x_main,
               f"spmv_ell {tag}: column 0 at k=51 bitwise equals k=1")
 
 
+def segsum_beyond_main(torch, ops, ref, gen, dev) -> None:
+    """The segment-sum pair at RW_KS on ragged operators (rows of 0 to
+    RW_WIDE nonzeros, rows_per_panel 1 and 8, f32/i32 and bf16/i16) and on
+    the three layouts of panel 0 (tune/spmv_probe.py::panel0_layouts: a
+    tail after its last stored slot, filled exactly, empty), each against
+    its plain version, the twins bitwise equal, column 0 at k = 51 bitwise
+    equal to k = 1; and each operator's panel0_tail what its row ids say
+    (panel 0 holds more slots of row 0 than row 0 stores)."""
+    from repro_torch.core.operators import CsrOp
+    from repro_torch.tune.spmv_probe import panel0_layouts, ragged_dense
+
+    A = ragged_dense(RW_M, RW_N, gen, dev, RW_WIDE)
+    seg = {f"rows of <= {RW_WIDE} rows_per_panel={R} "
+           f"{'bf16/i16' if sd else 'f32/i32'}": CsrOp.from_dense(
+               A, rows_per_panel=R, storage_dtype=sd)
+           for R in (1, 8) for sd in (None, "bfloat16")}
+    seg.update(panel0_layouts(gen, dev, RW_M, RW_N, RW_WIDE, RW_NARROW))
+    tails = {tag: (op.segsum_rows()["panel0_tail"],
+                   int((op.row_id[:op.panel_width] == 0).sum())
+                   > int(op.row_nnz[0])) for tag, op in seg.items()}
+    check(all(a == b for a, b in tails.values())
+          and all(tails[f"R{R}_panel0_{kind}"][0] == (kind != "exact")
+                  for R in (1, 8) for kind in ("tail", "exact", "empty")),
+          "CsrOp.segsum_rows()['panel0_tail'] is what the row ids say on "
+          f"{len(tails)} layouts, and the panel-0 layouts are what they "
+          "name")
+
+    def run(op, x, prefetch=False):
+        kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
+                  panel_width=op.panel_width, **op.segsum_rows())
+        flat = (op.data, op.indices, op.row_id)
+        if prefetch:
+            return ops.spmv_csr_prefetch(*flat, op.panel_nnz(), x, **kw)
+        return ops.spmv_csr(*flat, x, **kw)
+
+    def plain(op, x, data):
+        return ref.spmv_csr_segsum_ref(data, op.indices, op.row_id, x,
+                                       m=op.shape[0],
+                                       rows_per_panel=op.rows_per_panel,
+                                       panel_width=op.panel_width)
+
+    for k in RW_KS:
+        x = torch.randn((RW_N, k), generator=gen, device=dev)
+        for tag, op in seg.items():
+            y, yp = run(op, x), run(op, x, prefetch=True)
+            err = (y - plain(op, x, op.data)).abs()
+            scale = plain(op, x.abs(), op.data.abs())
+            check(bool((err <= SPMV_RTOL * scale + SPMV_ATOL).all())
+                  and torch.equal(y, yp),
+                  f"spmv_csr {tag} (panel width {op.panel_width}) k={k}: "
+                  f"max|kernel - plain| = {float(err.max()):.3e} within "
+                  f"{SPMV_RTOL:g}*(|A||x|) + {SPMV_ATOL:g}, spmv_csr_prefetch "
+                  "bitwise equal")
+    x51 = torch.randn((RW_N, 51), generator=gen, device=dev)
+    x1 = x51[:, :1].contiguous()
+    check(all(torch.equal(run(op, x51, pre)[:, 0], run(op, x1, pre)[:, 0])
+              for op in seg.values() for pre in (False, True)),
+          f"spmv_csr and spmv_csr_prefetch on {len(seg)} layouts: column 0 "
+          "at k=51 bitwise equals k=1")
+
+
 def block_gs_beyond_main(torch, ops, launcher, ref, gen, dev) -> None:
     """The dense block-GS sweep on ``BGS_CASES``, f32 and bf16 A: each k
     against its plain version and two runs bitwise, column 0 at k = 1
@@ -751,6 +814,7 @@ def main() -> int:
         vals, cols = op.sliced_rows()
         flat = (op.data, op.indices, op.row_id)
         seg = dict(m=m, rows_per_panel=R, panel_width=W)
+        rows = op.segsum_rows()
         pn = op.panel_nnz()
         return {
             "sliced": (
@@ -769,11 +833,11 @@ def main() -> int:
                     vals, cols, pn, x, m=m, rows_per_panel=R)),
             "segsum": (
                 "spmv_csr",
-                lambda: ops.spmv_csr(*flat, x, **seg),
+                lambda: ops.spmv_csr(*flat, x, **seg, **rows),
                 lambda: ref.spmv_csr_segsum_ref(*flat, x, **seg)),
             "segsum_prefetch": (
                 "spmv_csr_prefetch",
-                lambda: ops.spmv_csr_prefetch(*flat, pn, x, **seg),
+                lambda: ops.spmv_csr_prefetch(*flat, pn, x, **seg, **rows),
                 lambda: ref.spmv_csr_segsum_prefetch_ref(*flat, pn, x,
                                                          **seg)),
         }[variant]
@@ -867,7 +931,7 @@ def main() -> int:
     for tag, op, x in (("SPD", ops_by[("spd", None)], x_spd),
                        ("empty panels", holes, x_lsq)):
         kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
-                  panel_width=op.panel_width)
+                  panel_width=op.panel_width, **op.segsum_rows())
         x1 = x[:, :1].contiguous()
         args = (op.data, op.indices, op.row_id)
         for name, full, one in (
@@ -929,6 +993,8 @@ def main() -> int:
     row_window_beyond_main(torch, ops, ref, _spmv, ops_by[("spd", None)],
                            ops_by[("ell", None)], x_spd,
                            torch.Generator(dev).manual_seed(SEED + 19), dev)
+    segsum_beyond_main(torch, ops, ref,
+                       torch.Generator(dev).manual_seed(SEED + 23), dev)
     stops = {key: ops_by[key].stop_counts(K) is not None
              for key in (("spd", None), ("lsq", None), ("holes", None),
                          ("ell", None))}
@@ -2009,11 +2075,11 @@ def main() -> int:
 
     def spmv_entry(variant, op, x, err=None, source_line=None):
         """Time a CSR matvec kernel on ``op`` beside its bound.  Bytes:
-        each stored nonzero's value and index, and its row id for the
-        segment sum (padding slots carry nothing this run needs), the
-        per-row counts where the sliced pair is given them, x once, y
-        once, and panel_nnz for the predicated twins; flops: 2 per nonzero
-        per column.  With ``source_line`` it also times the plain
+        each stored nonzero's value and index (padding slots carry nothing
+        this run needs), the per-row counts where the sliced pair is given
+        them, each row's start and count for the segment sum (it reads no
+        row id), x once, y once, and panel_nnz for the predicated twins;
+        flops: 2 per nonzero per column.  With ``source_line`` it also times the plain
         version and the library yardstick (torch.sparse.mm on CSR) and
         returns the kernel's entry of the JSON line."""
         name, run, plain = csr_matvec(op, x, variant)
@@ -2022,7 +2088,7 @@ def main() -> int:
         nbytes = (op.nnz * (val_b + idx_b) + op.shape[1] * k * 4
                   + op.shape[0] * k * 4)
         if variant.startswith("segsum"):
-            nbytes += op.nnz * 4
+            nbytes += op.shape[0] * 8
         if variant.endswith("_prefetch"):
             nbytes += op.panel_nnz().numel() * 4
         if variant.startswith("sliced") and op.stop_counts(k) is not None:

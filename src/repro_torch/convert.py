@@ -56,18 +56,45 @@ def csr_from_arrays(data, indices, row_id, row_start, row_nnz, *, shape, nnz,
 
     The kernels gather through these arrays with raw pointers, so the
     layout is checked here: column ids in [0, n), row ids in [0, m), and
-    every row window inside the flat arrays.
+    every row window inside the flat arrays.  The segment-sum kernel reads
+    row r's slots as ``[row_start[r], row_start[r] + row_nnz[r])``, so
+    the layout must also be the packed one it stands for: each panel's
+    rows from its first slot on, within ``panel_width``, and every other
+    slot padding (value +0, column 0, row 0).
     """
     m, n = shape
     indices_np = np.asarray(indices)
     row_id_np = np.asarray(row_id)
-    ends = np.asarray(row_start, np.int64)[:m] + np.asarray(row_nnz, np.int64)
+    starts = np.asarray(row_start, np.int64)[:m]
+    counts = np.asarray(row_nnz, np.int64)
+    ends = starts + counts
     if indices_np.size and not (0 <= indices_np.min() and indices_np.max() < n):
         raise ValueError(f"column ids outside [0, {n})")
     if row_id_np.size and not (0 <= row_id_np.min() and row_id_np.max() < max(m, 1)):
         raise ValueError(f"row ids outside [0, {m})")
     if ends.size and ends.max() > indices_np.size:
         raise ValueError("a row window runs past the flat arrays")
+    R, W = int(rows_per_panel), int(panel_width)
+    num_panels = -(-m // R)
+    per_panel = np.zeros((num_panels * R,), np.int64)
+    per_panel[:m] = counts
+    per_panel = per_panel.reshape(num_panels, R)
+    packed = (np.arange(num_panels)[:, None] * W + np.cumsum(per_panel, 1)
+              - per_panel).reshape(-1)[:m]
+    stored = np.repeat(starts, counts) + (np.arange(int(counts.sum()))
+                                          - np.repeat(np.cumsum(counts) - counts, counts))
+    pad = np.ones(indices_np.size, bool)
+    pad[stored] = False
+    want_rows = np.zeros(indices_np.size, np.int64)
+    want_rows[stored] = np.repeat(np.arange(m), counts)
+    pad_vals = np.asarray(data).astype(np.float32)[pad]
+    if ((per_panel.sum(1) > W).any() or not np.array_equal(starts, packed)
+            or not np.array_equal(row_id_np, want_rows)
+            or (indices_np[pad] != 0).any() or (pad_vals != 0).any()
+            or np.signbit(pad_vals).any()):
+        raise ValueError("the layout is not the packed panel layout: rows "
+                         "from their panel's first slot, padding +0 at "
+                         "column 0, row 0")
     return CsrOp(_tensor(data, device), _tensor(indices, device),
                  _tensor(row_id, device), _tensor(row_start, device),
                  _tensor(row_nnz, device), shape=shape, nnz=int(nnz),

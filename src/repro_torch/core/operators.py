@@ -335,10 +335,11 @@ class CsrOp:
       ``[row_start[r], row_start[r] + row_nnz[r])``, never straddling a
       panel.  ``row_cap`` slack slots follow the last panel.
 
-    The kernels read the flat arrays (the segment-sum matvec) and two
-    derived views, memoized on first use: ``padded_rows()`` (the sweeps)
-    and ``sliced_rows()`` (the sliced matvec).  All of these arrays equal
-    the reference operator's exactly.
+    The kernels read the flat arrays (the segment-sum matvec, each row
+    through ``row_start``/``row_nnz``: ``segsum_rows()``) and two derived
+    views, memoized on first use: ``padded_rows()`` (the sweeps) and
+    ``sliced_rows()`` (the sliced matvec).  All of these arrays equal the
+    reference operator's exactly.
     """
 
     def __init__(self, data, indices, row_id, row_start, row_nnz, *,
@@ -357,6 +358,7 @@ class CsrOp:
         self._sliced: tuple[torch.Tensor, torch.Tensor] | None = None
         self._panel_nnz: torch.Tensor | None = None
         self._has_empty_panel: bool | None = None
+        self._panel0_tail: bool | None = None
 
     @classmethod
     def from_dense(cls, A: torch.Tensor, *, rows_per_panel: int = 8,
@@ -480,6 +482,8 @@ class CsrOp:
             padded[:m] = self.row_nnz.cpu().numpy()
             per_panel = padded.reshape(num_panels, R).sum(axis=1)
             self._has_empty_panel = bool((per_panel == 0).any())
+            self._panel0_tail = bool(num_panels > 0
+                                     and per_panel[0] < self.panel_width)
             self._panel_nnz = torch.from_numpy(
                 per_panel.astype(np.int32)).to(self.device)
         return self._panel_nnz
@@ -541,13 +545,26 @@ class CsrOp:
         return (self.row_nnz if worth_stopping(self._shape[0], width,
                                                self.nnz, k) else None)
 
+    def segsum_rows(self) -> dict:
+        """What the segment-sum kernels read each row's slots from, as
+        keywords of ``ops.spmv_csr``: ``row_start`` and ``row_nnz`` (row r's
+        slots are ``[row_start[r], row_start[r] + row_nnz[r])``, packed from
+        its panel's first slot) and ``panel0_tail``, whether panel 0 holds
+        padding after its last stored slot (``panel_nnz[0] <
+        panel_width``), which the row-id sum adds to row 0.  The flag is
+        taken once, with ``panel_nnz()``."""
+        self.panel_nnz()
+        return dict(row_start=self.row_start, row_nnz=self.row_nnz,
+                    panel0_tail=self._panel0_tail)
+
     def matvec_segsum(self, x: torch.Tensor, *,
                       skip_empty: bool = False) -> torch.Tensor:
-        """``A @ x`` by the segment-sum kernels over the stored flat arrays
-        ``data``/``indices``/``row_id`` (the reference's legacy contrast
-        case); ``skip_empty`` runs the predicated twin."""
+        """``A @ x`` by the segment-sum kernels over the stored flat layout
+        (the reference's legacy contrast case): each output row chains its
+        own slots, found through ``segsum_rows()``, bitwise the segment sum
+        over ``row_id``; ``skip_empty`` runs the predicated twin."""
         kw = dict(m=self._shape[0], rows_per_panel=self.rows_per_panel,
-                  panel_width=self.panel_width)
+                  panel_width=self.panel_width, **self.segsum_rows())
         if skip_empty:
             return ops.spmv_csr_prefetch(self.data, self.indices, self.row_id,
                                          self.panel_nnz(), x, **kw)

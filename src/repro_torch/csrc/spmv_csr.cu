@@ -50,22 +50,38 @@
 // ::spmv_csr_prefetch, which read the flat layout itself: panel p owns slots
 // [p * W, (p + 1) * W) of data/indices/row_id (W = panel_width), and
 //   y[r, c] = sum of data[s] * x[indices[s], c] over the panel's slots s
-//             with row_id[s] == r, in slot order (fmaf, f32)
+//             with row_id[s] == r, in slot order (fmaf, f32, from +0)
 // (the TPU kernels form that sum as a one-hot matmul on the MXU; here it is
-// a plain slot loop).  Padding slots carry value 0 and row 0, so they add
-// exact zeros to row 0 of panel 0 and nothing elsewhere.  The prefetch
-// variant writes zeros for the rows of panels with panel_nnz == 0 without
-// reading their slots.  What bounds it: bytes, as above, plus the row ids.
-// Design: one CTA per panel stages kSlots slots at a time in shared memory
-// (values widened to f32, indices to int, row ids made panel-local) and
-// notes each local row's first and last slot (atomicMin/atomicMax: the
-// result does not depend on their order); each thread owns up to kSegOpt
-// outputs of the panel and scans only its row's slot range, adding the
-// slots whose row matches in slot order.  Both kernels call one device
-// function, segsum_panel, so they are bitwise equal by construction, and
-// a column's result does not depend on k.  They add the same nonzero
-// terms in the same order as the sliced kernels (a row's slots are its
-// window), so the two matvec families may agree bitwise too.
+// a plain slot loop).  The layout packs a panel's rows from its first slot
+// (kernels/spmv_csr.py, core/operators.py::CsrOp): row r's slots are
+// [row_start[r], row_start[r] + row_nnz[r]), and the panel's tail after its
+// last stored slot holds padding (value +0, column 0, row 0).  So the slots
+// of row r inside its panel are exactly its own, except row 0, whose chain
+// goes on over panel 0's tail: each tail slot applies g(a) = fmaf(+0,
+// x[0, c], a), and g(g(a)) == g(a) (common.cuh, rw_stop's note), so the
+// tail applies g once when panel 0 has one (`tail`, computed once per
+// operator on the host) and not at all otherwise.  The tails of panels
+// p >= 1 hold row 0, outside the panel, and add to no row.
+//
+// What bounds it: bytes, as above (the stored entries, row_start and
+// row_nnz, x once, y once), and above them the x gathers.  Design: the
+// row-window mapping (one thread an output, neighbouring threads on
+// neighbouring c) with each row's window found through row_start and its
+// chain stopped by row_nnz, both loaded together (with panel_nnz in the
+// predicated variant) ahead of the chain; slot_dot_peeled then issues the
+// first 4 slots' loads together (worth 5-7% on an H100).  On the main SPD
+// operator it takes 1.04-1.05x a kernel that only gathers the same rows of
+// x, on the empty-panel design 1.09x (tune/spmv_probe.py --gather-floor;
+// PERF.md).  No shared memory, no barriers, no
+// atomics: a row reads neither row_id, another row's slots nor a tail, and
+// no lane idles past its row.  The result is bitwise the row-id sum above
+// for every x: each output is the same fmaf chain in the same order
+// (tune/spmv_probe.py holds digests of it to compare trees).  It does not
+// depend on k, and the predicated variant (the same kernel with panel_nnz,
+// zeros written for empty panels as a ternary) is bitwise the plain one
+// for finite x (a NaN or inf in row 0 of x reaches row 0 through an empty
+// panel 0's tail in the plain one only).  Indices are 32-bit where m * k
+// fits (the slots are int32 already: row_start), 64-bit otherwise.
 //
 // Each C entry launches on the caller's stream and returns
 // cudaGetLastError() of the launch.
@@ -73,97 +89,61 @@
 
 namespace {
 
-constexpr int kSegThreads = 128;
-constexpr int kSegOpt = 4;    // outputs per thread per pass over the slots
-constexpr int kSlots = 256;   // slots staged per chunk
-
-inline size_t segsum_smem_bytes(int rows_per_panel) {
-  return (size_t)kSlots * (sizeof(float) + 2 * sizeof(int)) + 2 * sizeof(int) * rows_per_panel;
+// Row r's chain from its layout; row 0 adds panel 0's tail term once.
+template <typename V, typename I>
+__device__ __forceinline__ float segsum_row(const V* __restrict__ data,
+                                            const I* __restrict__ indices, int start, int nnz,
+                                            const float* __restrict__ x, int k, int r, int c,
+                                            int tail) {
+  const float acc = slot_dot_peeled(data + start, indices + start, x, nnz, k, c);
+  return r == 0 && tail ? fmaf(0.f, x[c], acc) : acc;
 }
 
-// The rows of panel p.  Every thread of the CTA must call it.
-template <typename V, typename I>
-__device__ __forceinline__ void segsum_panel(const V* __restrict__ data,
-                                             const I* __restrict__ indices,
-                                             const int* __restrict__ row_id,
-                                             const float* __restrict__ x, float* __restrict__ y,
-                                             int p, int m, int k, int R, int W) {
-  extern __shared__ int seg_smem[];
-  float* vs = reinterpret_cast<float*>(seg_smem);  // kSlots values
-  int* cs = seg_smem + kSlots;                     // kSlots column ids
-  int* ls = cs + kSlots;                           // kSlots panel-local row ids
-  int* first = ls + kSlots;                        // R: first staged slot of a row
-  int* last = first + R;                           // R: last staged slot of a row
-  const int row0 = p * R;
-  const int rows = m - row0 < R ? m - row0 : R;
-  const int outputs = rows * k;
-  const size_t base = (size_t)p * W;
-  for (int o0 = 0; o0 < outputs; o0 += kSegThreads * kSegOpt) {
-    float acc[kSegOpt];
-#pragma unroll
-    for (int q = 0; q < kSegOpt; ++q) acc[q] = 0.f;
-    for (int s0 = 0; s0 < W; s0 += kSlots) {
-      const int sc = W - s0 < kSlots ? W - s0 : kSlots;
-      __syncthreads();  // the previous chunk's readers are done
-      for (int r = threadIdx.x; r < R; r += kSegThreads) {
-        first[r] = kSlots;
-        last[r] = -1;
-      }
-      __syncthreads();
-      for (int s = threadIdx.x; s < sc; s += kSegThreads) {
-        const size_t at = base + s0 + s;
-        const int lr = row_id[at] - row0;
-        vs[s] = to_f32(data[at]);
-        cs[s] = (int)indices[at];
-        ls[s] = lr;
-        if (lr >= 0 && lr < rows) {
-          atomicMin(first + lr, s);
-          atomicMax(last + lr, s);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < kSegOpt; ++q) {
-        const int o = o0 + threadIdx.x + q * kSegThreads;
-        if (o < outputs) {
-          const int r = o / k, c = o - r * k;
-          float a = acc[q];
-          for (int s = first[r]; s <= last[r]; ++s)
-            if (ls[s] == r) a = fmaf(vs[s], x[(size_t)cs[s] * k + c], a);
-          acc[q] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kSegOpt; ++q) {
-      const int o = o0 + threadIdx.x + q * kSegThreads;
-      if (o < outputs) y[(size_t)row0 * k + o] = acc[q];
-    }
-  }
-}
-
-template <typename V, typename I>
-__global__ void __launch_bounds__(kSegThreads)
+// Thread t computes output (t / k, t % k) of rows [0, m); `panel_nnz` (or
+// nullptr) writes zeros for the rows of empty panels.  k32: m * k < 2^32.
+template <typename V, typename I, bool k32>
+__global__ void __launch_bounds__(kRwThreads)
     segsum_kernel(const V* __restrict__ data, const I* __restrict__ indices,
-                  const int* __restrict__ row_id, const float* __restrict__ x,
-                  float* __restrict__ y, int m, int k, int R, int W) {
-  segsum_panel<V, I>(data, indices, row_id, x, y, blockIdx.x, m, k, R, W);
+                  const int* __restrict__ row_start, const int* __restrict__ row_nnz,
+                  const int* __restrict__ panel_nnz, int rows_per_panel,
+                  const float* __restrict__ x, float* __restrict__ y, int m, int k, int tail) {
+  int r, c;
+  size_t t;
+  if (k32) {
+    const unsigned u = blockIdx.x * kRwThreads + threadIdx.x;
+    if (u >= (unsigned)m * (unsigned)k) return;
+    r = (int)(u / (unsigned)k);
+    c = (int)(u - (unsigned)r * (unsigned)k);
+    t = u;
+  } else {
+    const long long u = (long long)blockIdx.x * kRwThreads + threadIdx.x;
+    if (u >= (long long)m * k) return;
+    r = (int)(u / k);
+    c = (int)(u % k);
+    t = (size_t)u;
+  }
+  const int start = row_start[r], nnz = row_nnz[r];
+  y[t] = panel_nnz == nullptr || panel_nnz[r / rows_per_panel] > 0
+             ? segsum_row(data, indices, start, nnz, x, k, r, c, tail)
+             : 0.f;
 }
 
+// Launch the segment sum on `stream`; returns cudaGetLastError().
 template <typename V, typename I>
-__global__ void __launch_bounds__(kSegThreads)
-    segsum_prefetch_kernel(const V* __restrict__ data, const I* __restrict__ indices,
-                           const int* __restrict__ row_id, const int* __restrict__ panel_nnz,
-                           const float* __restrict__ x, float* __restrict__ y, int m, int k,
-                           int R, int W) {
-  const int p = blockIdx.x;
-  if (panel_nnz[p] > 0) {  // uniform over the CTA
-    segsum_panel<V, I>(data, indices, row_id, x, y, p, m, k, R, W);
-    return;
-  }
-  const int row0 = p * R;
-  const int outputs = (m - row0 < R ? m - row0 : R) * k;
-  for (int o = threadIdx.x; o < outputs; o += kSegThreads) y[(size_t)row0 * k + o] = 0.f;
+int segsum_launch(const void* data, const void* indices, const void* row_start,
+                  const void* row_nnz, const void* panel_nnz, int rows_per_panel, const void* x,
+                  void* y, int m, int k, int tail, cudaStream_t stream) {
+  const long long outputs = (long long)m * k;
+  const unsigned grid = (unsigned)((outputs + kRwThreads - 1) / kRwThreads);
+  if (outputs < (1LL << 32))
+    segsum_kernel<V, I, true><<<grid, kRwThreads, 0, stream>>>(
+        (const V*)data, (const I*)indices, (const int*)row_start, (const int*)row_nnz,
+        (const int*)panel_nnz, rows_per_panel, (const float*)x, (float*)y, m, k, tail);
+  else
+    segsum_kernel<V, I, false><<<grid, kRwThreads, 0, stream>>>(
+        (const V*)data, (const I*)indices, (const int*)row_start, (const int*)row_nnz,
+        (const int*)panel_nnz, rows_per_panel, (const float*)x, (float*)y, m, k, tail);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -186,30 +166,21 @@ SLICED_ENTRY(f32_i32, float, int32_t)
 SLICED_ENTRY(bf16_i16, __nv_bfloat16, int16_t)
 SLICED_ENTRY(bf16_i32, __nv_bfloat16, int32_t)
 
-#define SEGSUM_ENTRY(NAME, V, I)                                                             \
-  extern "C" int NAME(const void* data, const void* indices, const void* row_id,            \
-                      const void* x, void* y, int m, int k, int R, int W, void* stream) {   \
-    segsum_kernel<V, I><<<(unsigned)((m + R - 1) / R), kSegThreads, segsum_smem_bytes(R),  \
-                          (cudaStream_t)stream>>>((const V*)data, (const I*)indices,        \
-                                                  (const int*)row_id, (const float*)x,      \
-                                                  (float*)y, m, k, R, W);                   \
-    return (int)cudaGetLastError();                                                          \
+#define SEGSUM_ENTRY(SFX, V, I)                                                              \
+  extern "C" int spmv_csr_##SFX(const void* data, const void* indices, const void* row_start,  \
+                                const void* row_nnz, const void* x, void* y, int m, int k,      \
+                                int tail, void* stream) {                                       \
+    return segsum_launch<V, I>(data, indices, row_start, row_nnz, nullptr, 1, x, y, m, k, tail, \
+                               (cudaStream_t)stream);                                          \
+  }                                                                                            \
+  extern "C" int spmv_csr_prefetch_##SFX(const void* data, const void* indices,                 \
+                                         const void* row_start, const void* row_nnz,            \
+                                         const void* panel_nnz, const void* x, void* y, int m,  \
+                                         int k, int rows_per_panel, int tail, void* stream) {   \
+    return segsum_launch<V, I>(data, indices, row_start, row_nnz, panel_nnz, rows_per_panel, x, \
+                               y, m, k, tail, (cudaStream_t)stream);                           \
   }
 
-#define SEGSUM_PREFETCH_ENTRY(NAME, V, I)                                                    \
-  extern "C" int NAME(const void* data, const void* indices, const void* row_id,            \
-                      const void* panel_nnz, const void* x, void* y, int m, int k, int R,   \
-                      int W, void* stream) {                                                 \
-    segsum_prefetch_kernel<V, I><<<(unsigned)((m + R - 1) / R), kSegThreads,                \
-                                   segsum_smem_bytes(R), (cudaStream_t)stream>>>(           \
-        (const V*)data, (const I*)indices, (const int*)row_id, (const int*)panel_nnz,       \
-        (const float*)x, (float*)y, m, k, R, W);                                             \
-    return (int)cudaGetLastError();                                                          \
-  }
-
-SEGSUM_ENTRY(spmv_csr_f32_i32, float, int32_t)
-SEGSUM_ENTRY(spmv_csr_bf16_i16, __nv_bfloat16, int16_t)
-SEGSUM_ENTRY(spmv_csr_bf16_i32, __nv_bfloat16, int32_t)
-SEGSUM_PREFETCH_ENTRY(spmv_csr_prefetch_f32_i32, float, int32_t)
-SEGSUM_PREFETCH_ENTRY(spmv_csr_prefetch_bf16_i16, __nv_bfloat16, int16_t)
-SEGSUM_PREFETCH_ENTRY(spmv_csr_prefetch_bf16_i32, __nv_bfloat16, int32_t)
+SEGSUM_ENTRY(f32_i32, float, int32_t)
+SEGSUM_ENTRY(bf16_i16, __nv_bfloat16, int16_t)
+SEGSUM_ENTRY(bf16_i32, __nv_bfloat16, int32_t)

@@ -260,25 +260,58 @@ def _check_segsum(name, data, indices, row_id, x, m, rows_per_panel,
     return num_panels
 
 
-def spmv_csr(data, indices, row_id, x, *, m, rows_per_panel, panel_width):
+def _check_rows(name, row_start, row_nnz, panel0_tail, m: int, x):
+    """The layout the segment-sum kernel reads each row's slots from:
+    ``row_start``/``row_nnz`` int32 (m,) (``row_start`` may be (1,) when
+    m == 0, as ``CsrOp`` keeps it) on x's device, and ``panel0_tail`` a
+    bool."""
+    for arg, t, shapes in (("row_start", row_start, {(m,), (max(m, 1),)}),
+                           ("row_nnz", row_nnz, {(m,)})):
+        if (t.dtype != torch.int32 or tuple(t.shape) not in shapes
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be contiguous int32 of "
+                             f"shape ({m},) on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not isinstance(panel0_tail, bool):
+        raise TypeError(f"{name}: panel0_tail must be a bool, got "
+                        f"{type(panel0_tail).__name__}")
+
+
+def spmv_csr(data, indices, row_id, x, *, m, rows_per_panel, panel_width,
+             row_start, row_nnz, panel0_tail):
     """``y = A @ x`` (m, k) f32 by a segment sum over the flat
     panel-aligned CSR layout (``CsrOp.data``/``indices``/``row_id``): panel
     ``p`` owns slots ``[p * panel_width, (p + 1) * panel_width)``, and each
-    output row adds its slots in slot order.  x: (n, k) f32."""
+    output row adds its slots in slot order.  x: (n, k) f32.
+
+    The kernel finds row r's slots as ``[row_start[r], row_start[r] +
+    row_nnz[r])`` (the layout packs a panel's rows from its first slot)
+    and adds panel 0's tail to row 0 once where ``panel0_tail`` (one term:
+    its padding slots hold +0 at column 0, and adding such a term twice is
+    adding it once), so it never reads ``row_id`` or a tail; the result is
+    the row-id segment sum's, bitwise (``CsrOp.segsum_rows()`` gives the
+    three).  The plain version reads ``row_id``, as the TPU kernel
+    does."""
     name = "spmv_csr"
     cuda = _on_cuda(name, data, indices, row_id, x)
     _check_segsum(name, data, indices, row_id, x, m, rows_per_panel,
                   panel_width)
-    kw = dict(m=m, rows_per_panel=rows_per_panel, panel_width=panel_width)
+    _check_rows(name, row_start, row_nnz, panel0_tail, m, x)
     if cuda:
-        return _spmv_csr.spmv_csr(data, indices, row_id, x, **kw)
-    return ref.spmv_csr_segsum_ref(data, indices, row_id, x, **kw)
+        return _spmv_csr.spmv_csr(data, indices, row_start, row_nnz, x, m=m,
+                                  panel0_tail=panel0_tail)
+    return ref.spmv_csr_segsum_ref(data, indices, row_id, x, m=m,
+                                   rows_per_panel=rows_per_panel,
+                                   panel_width=panel_width)
 
 
 def spmv_csr_prefetch(data, indices, row_id, panel_nnz, x, *, m,
-                      rows_per_panel, panel_width):
+                      rows_per_panel, panel_width, row_start, row_nnz,
+                      panel0_tail):
     """``spmv_csr`` with the rows of empty panels (``panel_nnz == 0``)
-    written as zeros without reading their slots; bitwise equal to it."""
+    written as zeros without reading their slots; bitwise equal to it for
+    finite x (an empty panel 0's tail carries a NaN or inf of x's row 0
+    into the plain sum's row 0)."""
     name = "spmv_csr_prefetch"
     cuda = _on_cuda(name, data, indices, row_id, panel_nnz, x)
     num_panels = _check_segsum(name, data, indices, row_id, x, m,
@@ -286,12 +319,15 @@ def spmv_csr_prefetch(data, indices, row_id, panel_nnz, x, *, m,
     if panel_nnz.shape != (num_panels,) or panel_nnz.dtype != torch.int32:
         raise ValueError(f"{name}: panel_nnz must be int32 of shape "
                          f"({num_panels},)")
-    kw = dict(m=m, rows_per_panel=rows_per_panel, panel_width=panel_width)
+    _check_rows(name, row_start, row_nnz, panel0_tail, m, x)
     if cuda:
-        return _spmv_csr.spmv_csr_prefetch(data, indices, row_id, panel_nnz, x,
-                                          **kw)
+        return _spmv_csr.spmv_csr_prefetch(
+            data, indices, row_start, row_nnz, panel_nnz, x, m=m,
+            rows_per_panel=rows_per_panel, panel0_tail=panel0_tail)
     return ref.spmv_csr_segsum_prefetch_ref(data, indices, row_id, panel_nnz,
-                                            x, **kw)
+                                            x, m=m,
+                                            rows_per_panel=rows_per_panel,
+                                            panel_width=panel_width)
 
 
 def spmv_ell(vals, cols, x, *, n_cols: int | None = None, counts=None):

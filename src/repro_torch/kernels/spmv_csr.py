@@ -5,16 +5,17 @@ Port of ``repro/kernels/spmv_csr.py::spmv_csr_sliced`` /
 each row window contracted in slot order and stopped after the row's
 first padding slot when its count is given; the row-window kernel the ELL
 matvec shares) and ``::spmv_csr`` / ``::spmv_csr_prefetch`` (the flat
-panel-aligned layout: one CTA per panel, a segment sum over the panel's
-slots in slot order).  Each predicated variant writes zeros for empty
-panels and is bitwise equal to its plain twin.  The kernel design and
-what bounds it are in the source's header note.
+panel-aligned layout: one thread an output, each row's slots found
+through ``row_start``/``row_nnz`` and chained in slot order, row 0 adding
+panel 0's tail term once where ``panel0_tail``).  Each predicated variant
+writes zeros for empty panels and is bitwise equal to its plain twin.  The
+kernel design and what bounds it are in the source's header note.
 
 These functions take tensors already checked by ``kernels/ops.py`` (CUDA,
-contiguous, matching shapes and types, int32 ``row_id``, ``panel_nnz``
-and ``counts``) and launch on PyTorch's current stream.  Each adds one to
-its entry of ``LAUNCHES`` where it launches.  ``row_extent`` is the rule
-the per-row counts follow.
+contiguous, matching shapes and types, int32 ``row_start``, ``row_nnz``,
+``panel_nnz`` and ``counts``) and launch on PyTorch's current stream.
+Each adds one to its entry of ``LAUNCHES`` where it launches.
+``row_extent`` is the rule the per-row counts follow.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ LAUNCHES = {"spmv_csr_sliced": 0, "spmv_csr_sliced_prefetch": 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SLICED_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
 _PREFETCH_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-_SEGSUM_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-_SEGSUM_PREFETCH_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SEGSUM_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+_SEGSUM_PREFETCH_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 
 
 def row_extent(vals, cols):
@@ -112,26 +113,26 @@ def spmv_csr_sliced_prefetch(vals, cols, panel_nnz, x, *, m: int,
     return y
 
 
-def spmv_csr(data, indices, row_id, x, *, m: int, rows_per_panel: int,
-             panel_width: int):
+def spmv_csr(data, indices, row_start, row_nnz, x, *, m: int,
+             panel0_tail: bool):
     """``y = A @ x`` (m, k) f32 on the card by a segment sum over the flat
-    panel-aligned layout."""
+    panel-aligned layout, each row's slots found through its layout."""
     k = x.shape[1]
     y = torch.empty((m, k), dtype=torch.float32, device=x.device)
     if m == 0 or k == 0:
         return y
     fn = _build.c_entry("spmv_csr", "spmv_csr", data.dtype, indices.dtype,
                         _SEGSUM_ARGS)
-    err = fn(data.data_ptr(), indices.data_ptr(), row_id.data_ptr(),
-             x.data_ptr(), y.data_ptr(), m, k, rows_per_panel, panel_width,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(data.data_ptr(), indices.data_ptr(), row_start.data_ptr(),
+             row_nnz.data_ptr(), x.data_ptr(), y.data_ptr(), m, k,
+             int(panel0_tail), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(err, "spmv_csr")
     LAUNCHES["spmv_csr"] += 1
     return y
 
 
-def spmv_csr_prefetch(data, indices, row_id, panel_nnz, x, *, m: int,
-                      rows_per_panel: int, panel_width: int):
+def spmv_csr_prefetch(data, indices, row_start, row_nnz, panel_nnz, x, *,
+                      m: int, rows_per_panel: int, panel0_tail: bool):
     """``spmv_csr`` on the card with the rows of empty panels written as 0
     and their slots never read."""
     k = x.shape[1]
@@ -140,9 +141,9 @@ def spmv_csr_prefetch(data, indices, row_id, panel_nnz, x, *, m: int,
         return y
     fn = _build.c_entry("spmv_csr", "spmv_csr_prefetch", data.dtype,
                         indices.dtype, _SEGSUM_PREFETCH_ARGS)
-    err = fn(data.data_ptr(), indices.data_ptr(), row_id.data_ptr(),
-             panel_nnz.data_ptr(), x.data_ptr(), y.data_ptr(), m, k,
-             rows_per_panel, panel_width,
+    err = fn(data.data_ptr(), indices.data_ptr(), row_start.data_ptr(),
+             row_nnz.data_ptr(), panel_nnz.data_ptr(), x.data_ptr(),
+             y.data_ptr(), m, k, rows_per_panel, int(panel0_tail),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(err, "spmv_csr_prefetch")
     LAUNCHES["spmv_csr_prefetch"] += 1

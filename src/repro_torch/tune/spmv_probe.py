@@ -26,9 +26,17 @@ Digests: the SHA-256 of the output bytes of the timed cases and of
 2500, rows of 0 to 70 or to 24 nonzeros: windows wider than two chunks of
 lanes and narrower) through the sliced pair and ELL (exact and truncated
 width, a slab of 700 rows of a 3001-column operator), bf16/i16
-and bf16/i32 windows, and an x holding NaN, inf and -0.  Checks (exit 1
-if one fails): the sliced pair bitwise equal, with counts bitwise equal
-to without, and column 0 at k = 51 bitwise equal to k = 1.
+and bf16/i32 windows, and an x holding NaN, inf and -0; and of the
+segment-sum pair on the same CSR operators and on ``panel0_layouts``
+(panel 0 ending in a tail, filled exactly, empty) at ``DIGEST_KS``, on
+bf16/i32, and for an x with NaN, inf and -0 in rows 0 and 1 (row 0's
+tail term) and elsewhere, there and on the empty-panel design.  Checks
+(exit 1 if one fails): each pair of twins bitwise equal (for that x past
+row 0 where panel 0 is empty: its tail carries row 0 of x into the plain
+segment sum only), the sliced kernel with counts bitwise equal to
+without, and column 0 at k = 51 bitwise equal to k = 1.  Where the tree
+under test takes the CSR row layout (``segsum_rows``), the segment sums
+are given it.
 
 Where the tree under test takes per-row counts (``counts``), the timed
 cases pass what the operators' matvecs pass (``stop_counts``), and the
@@ -52,8 +60,9 @@ three give the same results).
 nothing of ``csrc/``): one warp a gathered row of x, lanes on its
 columns, a persistent grid, no window, count or output loads.  It gathers
 the rows of x that the stored entries of the SPD CSR view, the ELL
-operator and the LSQ design name (``ids``, one broadcast load of 4 bytes
-a row), the same number of rows at hashed uniform ids (``hashed``, no id
+operator, the LSQ design and its empty-panel variant (``holes``) name
+(``ids``, one broadcast load of 4 bytes a row: the yardsticks of
+``segsum_spd`` and ``segsum_prefetch_holes`` too), the same number of rows at hashed uniform ids (``hashed``, no id
 loads) and in order (``in_order``), and reports each case's time from a
 graph beside the 32-byte sectors its rows span and that rate: the card's
 rate for these gathers, measured apart from the matvecs' layout.
@@ -252,6 +261,7 @@ def ragged_dense(m, n, gen, dev, most=70):
 
 
 COUNTS = "counts" in inspect.signature(ops.spmv_csr_sliced).parameters
+ROWS = "row_start" in inspect.signature(ops.spmv_csr).parameters
 
 
 def _counts(op, use, k):
@@ -283,13 +293,39 @@ def _ell(op, x, counts="main", **kw):
 
 
 def _segsum(op, x, prefetch=False):
+    """The segment sum on ``op`` and ``x``, given the operator's row layout
+    where the tree under test takes it (``segsum_rows``)."""
     kw = dict(m=op.shape[0], rows_per_panel=op.rows_per_panel,
-              panel_width=op.panel_width)
+              panel_width=op.panel_width,
+              **(op.segsum_rows() if ROWS else {}))
     if prefetch:
         return functools.partial(ops.spmv_csr_prefetch, op.data, op.indices,
                                  op.row_id, op.panel_nnz(), x, **kw)
     return functools.partial(ops.spmv_csr, op.data, op.indices, op.row_id, x,
                              **kw)
+
+
+def panel0_layouts(gen, dev, m, n, most=70, rest=24) -> dict:
+    """CSR operators (m, n) f32 whose panel 0 ends in a tail of padding
+    (``tail``), is filled exactly to the panel width (``exact``: lane 1)
+    and holds no nonzero (``empty``), at rows_per_panel 1 and 8: panel 0's
+    rows hold ``most`` nonzeros each, the others 0 to ``rest``, so panel 0
+    sets the width.  Keyed ``R{R}_panel0_{kind}``."""
+    A = ragged_dense(m, n, gen, dev, rest)
+    out = {}
+    for R in (1, 8):
+        full = A.clone()
+        full[:R] = 0.0
+        cols = torch.rand((R, n), generator=gen, device=dev).argsort(1)
+        full[torch.arange(R, device=dev)[:, None], cols[:, :most]] = \
+            torch.randn((R, most), generator=gen, device=dev)
+        empty = A.clone()
+        empty[:R] = 0.0
+        for kind, B, lane in (("tail", full, 128), ("exact", full, 1),
+                              ("empty", empty, 128)):
+            out[f"R{R}_panel0_{kind}"] = CsrOp.from_dense(
+                B, rows_per_panel=R, lane=lane)
+    return out
 
 
 def _timed_cases(dev, only=None) -> dict:
@@ -383,7 +419,66 @@ def _digest_cases(dev) -> tuple[dict, list]:
                                _sliced(op, x1, pre, "rows")()[:, 0]):
                 failed.append(f"column 0 at k={K} == k=1, R{R} {sd} {most} "
                               f"{pre}")
+    failed += _segsum_digests(ops_by, big, xb, dev, out)
     return out, failed
+
+
+def _segsum_digests(ops_by, big, xb, dev, out) -> list:
+    """Adds to ``out`` the segment sums' outputs on the ragged operators
+    and ``panel0_layouts`` at ``DIGEST_KS``, on the bf16/i32 operator, and
+    for an x with NaN, inf and -0 (rows 0 and 1 among them: row 0's tail
+    term) on those and on the empty-panel design; returns the checks that
+    failed: the twins bitwise equal (for that x only where panel 0 holds
+    a nonzero, and past row 0 everywhere) and column 0 at k = 51 bitwise
+    k = 1.  Draws from a generator of its own."""
+    gen = torch.Generator(dev).manual_seed(2)
+    seg = {f"R{R}_{'bf16' if sd else 'f32'}_nnz{most}": op
+           for (R, sd, most), op in ops_by.items()}
+    seg.update(panel0_layouts(gen, dev, 3001, 2500))
+    failed = []
+
+    def both(tag, op, x):
+        y, yp = _segsum(op, x)(), _segsum(op, x, prefetch=True)()
+        out[f"segsum_{tag}"], out[f"segsum_prefetch_{tag}"] = y, yp
+        return y, yp
+
+    for k in DIGEST_KS:
+        x = torch.randn((2500, k), generator=gen, device=dev)
+        for name, op in seg.items():
+            y, yp = both(f"{name}_k{k}", op, x)
+            if not torch.equal(y, yp):
+                failed.append(f"segsum == segsum_prefetch, {name} k={k}")
+    y, yp = both("bf16_i32", big, xb)
+    if not torch.equal(y, yp):
+        failed.append("segsum == segsum_prefetch, bf16/i32")
+    x = torch.randn((2500, K), generator=gen, device=dev)
+    x[0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                             -0.0])
+    x[0, 4:8] = 0.0
+    x[1, :3] = torch.tensor([-0.0, float("nan"), float("inf")])
+    x[3, 5], x[7, 0], x[11] = float("nan"), float("inf"), -0.0
+    lsq = random_sparse_lsq(32768, 4096, row_nnz=16, n_rhs=1, seed=0,
+                            device=dev)
+    xh = torch.randn((4096, K), generator=gen, device=dev)
+    xh[:2] = x[:2]
+    cases = [(name, op, x) for name, op in seg.items()]
+    cases.append(("holes", as_operator(_holes(lsq.A), "csr"), xh))
+    for name, op, xz in cases:
+        y, yp = both(f"{name}_special", op, xz)
+        lo = 0 if int(op.panel_nnz()[0]) > 0 else 1
+        if not torch.equal(y.view(torch.int32)[lo:],
+                           yp.view(torch.int32)[lo:]):
+            failed.append(f"segsum == segsum_prefetch bitwise, {name}, x "
+                          "with NaN/inf/-0")
+    for name, op in seg.items():
+        x51 = torch.randn((2500, K), generator=gen, device=dev)
+        x1 = x51[:, :1].contiguous()
+        for pre in (False, True):
+            if not torch.equal(_segsum(op, x51, pre)()[:, 0],
+                               _segsum(op, x1, pre)()[:, 0]):
+                failed.append(f"segsum column 0 at k={K} == k=1, {name} "
+                              f"{pre}")
+    return failed
 
 
 def _stored_ids(vals, cols, counts):
@@ -442,6 +537,7 @@ def _gather_floor(dev) -> dict:
     x_spd = torch.randn((16384, K), generator=gen, device=dev)
     x_lsq = torch.randn((4096, K), generator=gen, device=dev)
     csr_spd, csr_lsq = as_operator(spd.A, "csr"), as_operator(lsq.A, "csr")
+    holes = as_operator(_holes(lsq.A), "csr")
     ell = as_operator(spd.A, "ell")
     grid = torch.cuda.get_device_properties(dev).multi_processor_count * 8
     out = torch.empty(grid * 256, device=dev)
@@ -451,6 +547,8 @@ def _gather_floor(dev) -> dict:
         "ell_spd": (_stored_ids(ell.vals, ell.cols, ell.row_counts()), x_spd),
         "sliced_lsq": (_stored_ids(*csr_lsq.sliced_rows(),
                                    csr_lsq.row_counts()), x_lsq),
+        "holes": (_stored_ids(*holes.sliced_rows(), holes.row_counts()),
+                  x_lsq),
     }
     res = {}
     for name, (ids, x) in cases.items():

@@ -81,9 +81,11 @@ def test_segsum_plain_matches_pallas(kind, storage, R):
         r.data, r.indices, r.row_id, r.panel_nnz(), jnp.asarray(x),
         interpret=True, **kw)
     xt = torch.from_numpy(x)
-    got = ops.spmv_csr(p.data, p.indices, p.row_id, xt, **kw)
+    got = ops.spmv_csr(p.data, p.indices, p.row_id, xt, **kw,
+                       **p.segsum_rows())
     got_skip = ops.spmv_csr_prefetch(p.data, p.indices, p.row_id,
-                                     p.panel_nnz(), xt, **kw)
+                                     p.panel_nnz(), xt, **kw,
+                                     **p.segsum_rows())
     for g, w in ((got, want), (got_skip, want_skip)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5)
