@@ -33,8 +33,11 @@ both column-tile widths, and the two row-window matvecs (CSR sliced and
 ELL) at k = 1 to 70 on ragged operators, with the operators' per-row
 counts bitwise equal to without them, and the two segment sums there and
 on layouts whose panel 0 ends in padding, is filled exactly or is
-empty.  It solves column 0 of each
-path alone and holds it bitwise to column 0 of the k = 51 solve.  It
+empty.  It holds the CSR operators built on the card to the CPU's
+build of the same matrices, array for array.  It runs each CSR solve
+three times and prints the median wall time with its spread.  It solves
+column 0 of each path alone and holds it bitwise to column 0 of the
+k = 51 solve.  It
 checks what comes out, shows from the
 launch counters (set to 0 just before each path and read just after) that
 each path ran its kernels and nothing else, and times each kernel beside
@@ -158,6 +161,7 @@ BGS_STREAM_STEPS = 40
 RW_KS = (1, 3, 16, 31, 32, 33, 51, 64, 70)
 RW_M, RW_N, RW_WIDE, RW_NARROW, RW_SLAB = 3001, 2500, 70, 24, 700
 MONO_RTOL = 1e-6            # err_sq non-increasing up to this rounding
+SOLVE_RUNS = 3              # runs of each CSR solve, for the wall times
 RESID_RTOL = 1e-4           # kernel residual vs dense torch.matmul residual
 # The distributed Kaczmarz engine.  P = 1 in this process: sparse_rk on the
 # LSQ problem (CSR), DIST_RK_ROUNDS rounds of LSQ_M local steps; banded_rk
@@ -490,6 +494,13 @@ def row_window_beyond_main(torch, ops, ref, spmv, main_csr, main_ell, x_main,
         one = ops.spmv_csr_sliced(vals, cols, x[:, :1].contiguous(), **kw)
         check(torch.equal(one[:, 0], full[:, 0]),
               f"spmv_csr_sliced {tag}: column 0 at k=51 bitwise equals k=1")
+        full = ops.spmv_csr_sliced_prefetch(vals, cols, op.panel_nnz(), x,
+                                            **kw)
+        one = ops.spmv_csr_sliced_prefetch(vals, cols, op.panel_nnz(),
+                                           x[:, :1].contiguous(), **kw)
+        check(torch.equal(one[:, 0], full[:, 0]),
+              f"spmv_csr_sliced_prefetch {tag}: column 0 at k=51 bitwise "
+              "equals k=1")
     for tag, op, x in (("SPD main", main_ell, x_main),
                        ("ragged", ells["exact"], xs51)):
         full = ops.spmv_ell(op.vals, op.cols, x, counts=op.row_counts())
@@ -497,6 +508,49 @@ def row_window_beyond_main(torch, ops, ref, spmv, main_csr, main_ell, x_main,
                            counts=op.row_counts())
         check(torch.equal(one[:, 0], full[:, 0]),
               f"spmv_ell {tag}: column 0 at k=51 bitwise equals k=1")
+
+
+def csr_built_on_card(torch, cases) -> None:
+    """Each CSR operator built on the card (``CsrOp.from_dense``) against the
+    one built on the CPU from the same dense matrix: every array bitwise
+    (bf16 values by their bits), every scalar and both memoised panel
+    flags equal; ``torch.nonzero`` of the pattern in the CPU's row-major
+    order; and ``convert.csr_from_arrays`` taking the card's arrays as the
+    packed layout.  ``cases``: tag -> (dense A on the card, the card's
+    operator, storage dtype)."""
+    from repro_torch import convert
+    from repro_torch.core.operators import CsrOp
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    for tag, (A, op, sd) in cases.items():
+        A_cpu = A.cpu()
+        t0 = time.perf_counter()
+        cpu = CsrOp.from_dense(A_cpu, rows_per_panel=op.rows_per_panel,
+                               storage_dtype=sd)
+        t_cpu = time.perf_counter() - t0
+        arrays = ("data", "indices", "row_id", "row_start", "row_nnz")
+        same = [torch.equal(bits(getattr(op, f)).cpu(), bits(getattr(cpu, f)))
+                and getattr(op, f).dtype == getattr(cpu, f).dtype
+                for f in arrays]
+        same.append(torch.equal(op.panel_nnz().cpu(), cpu.panel_nnz()))
+        scalars = ("shape", "nnz", "row_cap", "rows_per_panel",
+                   "panel_width", "_has_empty_panel", "_panel0_tail")
+        same += [getattr(op, f) == getattr(cpu, f) for f in scalars]
+        order = torch.equal((A != 0).nonzero().cpu(), (A_cpu != 0).nonzero())
+        convert.csr_from_arrays(                # raises if not packed
+            op.data.float().cpu().numpy(),
+            *(getattr(op, f).cpu().numpy() for f in arrays[1:]),
+            shape=op.shape, nnz=op.nnz, row_cap=op.row_cap,
+            rows_per_panel=op.rows_per_panel, panel_width=op.panel_width,
+            device="cpu")
+        check(all(same) and order,
+              f"CSR {tag}: the operator built on the card equals the CPU's "
+              f"build ({len(arrays) + 1} arrays bitwise, {len(scalars)} "
+              "scalars and flags), torch.nonzero on the card in the CPU's "
+              "row-major order, convert.csr_from_arrays takes its layout "
+              f"(CPU build {t_cpu:.3f} s)")
 
 
 def segsum_beyond_main(torch, ops, ref, gen, dev) -> None:
@@ -796,6 +850,24 @@ def main() -> int:
           f"({ops_by[('spd', None)].nnz})")
     check(torch.equal(ops_by[("banded", None)].to_dense(), banded.A),
           "the band tiles reconstruct the block-banded matrix exactly")
+    # The CSR build on the card against the CPU's, on the main SPD
+    # operator, the empty-panel design and a ragged bf16/int16 operator.
+    from repro_torch.tune.spmv_probe import ragged_dense
+    A_ragged = ragged_dense(RW_M, RW_N, torch.Generator(dev).manual_seed(
+        SEED + 29), dev, RW_WIDE)
+    t0 = time.perf_counter()
+    ragged_bf16 = CsrOp.from_dense(A_ragged, storage_dtype="bfloat16")
+    torch.cuda.synchronize()
+    print(f"  csr ragged {RW_M}x{RW_N} bf16: built from dense in "
+          f"{time.perf_counter() - t0:.3f} s; nnz={ragged_bf16.nnz} "
+          f"indices={ragged_bf16.indices.dtype}", flush=True)
+    csr_built_on_card(torch, {
+        f"SPD {SPD_N}": (spd.A, ops_by[("spd", None)], None),
+        f"empty-panel LSQ {LSQ_M}x{LSQ_N}": (lsq_holes.A,
+                                            ops_by[("holes", None)], None),
+        f"ragged {RW_M}x{RW_N} bf16/i16": (A_ragged, ragged_bf16,
+                                          "bfloat16")})
+    del A_ragged, ragged_bf16
 
     print("== kernels against their plain versions", flush=True)
     errs = {}
@@ -898,10 +970,12 @@ def main() -> int:
 
         for name, key, x in (("spd", ("spd", sd), x_spd),
                              ("lsq", ("lsq", sd), x_lsq)):
-            _, errs[("spmv_csr_sliced", sd, name)] = spmv_check(
+            y_sl, errs[("spmv_csr_sliced", sd, name)] = spmv_check(
                 f"{tag} {name}", ops_by[key], x, "sliced")
-            _, errs[("spmv_csr_sliced_prefetch", sd, name)] = spmv_check(
+            y_slp, errs[("spmv_csr_sliced_prefetch", sd, name)] = spmv_check(
                 f"{tag} {name}", ops_by[key], x, "sliced_prefetch")
+            check(torch.equal(y_sl, y_slp), "spmv_csr_sliced == "
+                  f"spmv_csr_sliced_prefetch bitwise, {tag} {name}")
             y_seg, errs[("spmv_csr", sd, name)] = spmv_check(
                 f"{tag} {name}", ops_by[key], x, "segsum")
             y_pre, errs[("spmv_csr_prefetch", sd, name)] = spmv_check(
@@ -1542,23 +1616,32 @@ def main() -> int:
     # GS record: A e and A x; one per RK record: A x) and twice per record
     # for its column sums (err_sq and resid), and nothing else, so no
     # chunk or record fell back to a plain version.
+    # The CSR solves run SOLVE_RUNS times (each with its counters checked)
+    # and their wall times print as the median with the spread; the
+    # launches of a path's first run go into the JSON line.
     launches = dict.fromkeys(ops.KERNELS, 0)
-    walls = {}
 
-    def drive(tag, expect, run):
-        torch.cuda.synchronize()    # no earlier work in this path's time
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        res = run()
-        torch.cuda.synchronize()
-        walls[tag] = time.perf_counter() - t0
-        got = ops.launch_counts()
-        print(f"  {tag}: {walls[tag]:.3f} s wall (operator build included), "
-              f"launches {({k: v for k, v in got.items() if v})}", flush=True)
-        check(got == {name: expect.get(name, 0) for name in ops.KERNELS},
-              f"{tag} launched exactly {expect}")
-        for name, n in got.items():
-            launches[name] += n
+    def drive(tag, expect, run, runs=1):
+        walls = []
+        for i in range(runs):
+            torch.cuda.synchronize()    # no earlier work in this path's time
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = ops.launch_counts()
+            check(got == {name: expect.get(name, 0) for name in ops.KERNELS},
+                  f"{tag} launched exactly {expect}")
+            if i == 0:
+                for name, n in got.items():
+                    launches[name] += n
+        w = sorted(walls)
+        spread = (f" (median of {runs}; min {w[0]:.4f}, max {w[-1]:.4f})"
+                  if runs > 1 else "")
+        print(f"  {tag}: {w[len(w) // 2]:.4f} s wall{spread} (operator build "
+              f"included), launches {({k: v for k, v in got.items() if v})}",
+              flush=True)
         return res
 
     def gs_sched(sweeps, n):
@@ -1569,18 +1652,21 @@ def main() -> int:
                     colsum=2 * GS_SWEEPS),
                lambda: solve(spd, format="csr",
                              generator=torch.Generator(dev).manual_seed(1),
-                             schedule=gs_sched(GS_SWEEPS, SPD_N)))
+                             schedule=gs_sched(GS_SWEEPS, SPD_N)),
+               runs=SOLVE_RUNS)
     rk = drive(f"CSR RK, {RK_SWEEPS} sweeps",
                dict(sweep_rows_rk=RK_SWEEPS, spmv_csr_sliced=RK_SWEEPS,
                     colsum=2 * RK_SWEEPS),
                lambda: solve(lsq, format="csr",
                              generator=torch.Generator(dev).manual_seed(2),
-                             schedule=gs_sched(RK_SWEEPS, LSQ_M)))
+                             schedule=gs_sched(RK_SWEEPS, LSQ_M)),
+               runs=SOLVE_RUNS)
     rkh = drive("CSR RK on the empty-panel design, 1 sweep",
                 dict(sweep_rows_rk=1, spmv_csr_sliced_prefetch=1, colsum=2),
                 lambda: solve(lsq_holes, format="csr",
                               generator=torch.Generator(dev).manual_seed(3),
-                              schedule=gs_sched(1, LSQ_M)))
+                              schedule=gs_sched(1, LSQ_M)),
+                runs=SOLVE_RUNS)
     eg = drive(f"ELL GS (width {ell_width}), {ELL_SWEEPS} sweeps",
                dict(sweep_rows_gs=ELL_SWEEPS, spmv_ell=2 * ELL_SWEEPS,
                     colsum=2 * ELL_SWEEPS),

@@ -20,7 +20,6 @@ The distributed engine's operator methods (``row_panel``,
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core.spd import ell_from_dense
@@ -58,7 +57,7 @@ def _index_dtype(values_dtype, n: int):
     """Column-index dtype paired with a value dtype: low-precision values
     narrow the index stream to int16 when every column id fits, halving
     the index bytes alongside the value bytes."""
-    if values_dtype.itemsize < 4 and n <= np.iinfo(np.int16).max:
+    if values_dtype.itemsize < 4 and n <= torch.iinfo(torch.int16).max:
         return torch.int16
     return torch.int32
 
@@ -363,26 +362,28 @@ class CsrOp:
     @classmethod
     def from_dense(cls, A: torch.Tensor, *, rows_per_panel: int = 8,
                    lane: int = 128, storage_dtype=None) -> "CsrOp":
-        """Exact CSR capture of every nonzero of dense ``A``, on A's device.
+        """Exact CSR capture of every nonzero of dense ``A``, built with
+        torch ops on A's device; the host reads only the largest row count
+        (and ``torch.nonzero`` its number of nonzeros).
 
         ``storage_dtype`` rounds the captured values (the pattern is taken
         from the input first, so the stored sparsity does not depend on
         it); column indices narrow to int16 alongside when every id fits.
         """
         m, n = A.shape
-        nz = (A != 0).cpu().numpy()
-        counts = nz.sum(axis=1).astype(np.int64)
+        nz = A != 0
+        counts = nz.sum(1)
+        rows, cols = nz.nonzero(as_tuple=True)          # row-major order
+        del nz
         cap = max(int(counts.max()) if m else 1, 1)
-        rows, cols = np.nonzero(nz)                     # row-major order
-        slot = np.arange(rows.size) - (np.cumsum(counts) - counts)[rows]
-        rows_t, cols_t, slot_t = (torch.from_numpy(a).to(A.device)
-                                  for a in (rows, cols, slot))
+        slot = (torch.arange(rows.numel(), device=A.device)
+                - (torch.cumsum(counts, 0) - counts)[rows])
         row_vals = torch.zeros((max(m, 1), cap), dtype=A.dtype,
                                device=A.device)
         row_cols = torch.zeros((max(m, 1), cap), dtype=torch.int32,
                                device=A.device)
-        row_vals[rows_t, slot_t] = A[rows_t, cols_t]
-        row_cols[rows_t, slot_t] = cols_t.to(torch.int32)
+        row_vals[rows, slot] = A[rows, cols]
+        row_cols[rows, slot] = cols.to(torch.int32)
         dt = canonical_storage_dtype(storage_dtype)
         if dt is not None:
             row_vals = row_vals.to(dt)
@@ -392,44 +393,55 @@ class CsrOp:
     @classmethod
     def _assemble(cls, row_vals, row_cols, counts, *, shape,
                   rows_per_panel: int = 8, lane: int = 128) -> "CsrOp":
-        """Pack per-row windows into the panel-aligned flat layout.
+        """Pack per-row windows into the panel-aligned flat layout, with
+        torch ops on the windows' device.
 
         ``row_vals``/``row_cols`` are (m, >= max nnz/row) tensors whose
         first ``counts[r]`` slots hold row ``r``'s values and global column
-        ids; slots past the count are ignored.
+        ids; slots past the count are ignored.  ``counts`` may be a tensor,
+        a numpy array or a list.  The host reads three scalars: the count
+        of nonzeros, the largest row count and the largest panel count.
+        Offsets are int64 up to the final int32 casts.
         """
         m, n = shape
-        counts = np.asarray(counts, np.int64).reshape(-1)
-        nnz = int(counts.sum())
-        row_cap = max(int(counts.max()) if m else 1, 1)
+        dev = row_vals.device
+        counts = torch.as_tensor(counts, dtype=torch.int64,
+                                 device=dev).reshape(-1)
         R = rows_per_panel
         num_panels = -(-m // R)
-        padded_counts = np.zeros((num_panels * R,), np.int64)
+        padded_counts = torch.zeros((num_panels * R,), dtype=torch.int64,
+                                    device=dev)
         padded_counts[:m] = counts
-        per_panel = padded_counts.reshape(num_panels, R)
-        W = int(-(-max(int(per_panel.sum(axis=1).max()) if num_panels else 1,
-                       1) // lane) * lane)
+        per_panel = padded_counts.view(num_panels, R)
+        if m:
+            nnz, cap, widest = torch.stack(
+                [counts.sum(), counts.max(), per_panel.sum(1).max()]).tolist()
+        else:
+            nnz, cap, widest = 0, 0, 0
+        row_cap = max(cap, 1)
+        W = -(-max(widest, 1) // lane) * lane
         total = num_panels * W + row_cap        # row-window slack at the end
         # Row r starts at its panel's base plus the counts of the rows
         # before it in the panel.
-        within = np.cumsum(per_panel, axis=1) - per_panel
-        row_start = np.zeros((max(m, 1),), np.int32)
-        row_start[:m] = (np.arange(num_panels)[:, None] * W
-                         + within).reshape(-1)[:m]
-        rows = np.repeat(np.arange(m), counts)
-        j = np.arange(nnz) - np.repeat(np.cumsum(counts) - counts, counts)
-        dev = row_vals.device
-        rows_t, j_t = torch.from_numpy(rows).to(dev), torch.from_numpy(j).to(dev)
-        slot_t = torch.from_numpy(row_start[rows].astype(np.int64)).to(dev) + j_t
+        within = torch.cumsum(per_panel, 1) - per_panel
+        starts = (torch.arange(num_panels, device=dev)[:, None] * W
+                  + within).reshape(-1)[:m]
+        row_start = torch.zeros((max(m, 1),), dtype=torch.int32, device=dev)
+        row_start[:m] = starts.to(torch.int32)
+        rows = torch.repeat_interleave(torch.arange(m, device=dev), counts,
+                                       output_size=nnz)
+        j = (torch.arange(nnz, device=dev)
+             - torch.repeat_interleave(torch.cumsum(counts, 0) - counts,
+                                       counts, output_size=nnz))
+        slot = starts[rows] + j
         data = torch.zeros((total,), dtype=row_vals.dtype, device=dev)
         cols = torch.zeros((total,), dtype=_index_dtype(row_vals.dtype, n),
                            device=dev)
         row_id = torch.zeros((total,), dtype=torch.int32, device=dev)
-        data[slot_t] = row_vals[rows_t, j_t]
-        cols[slot_t] = row_cols[rows_t, j_t].to(cols.dtype)
-        row_id[slot_t] = rows_t.to(torch.int32)
-        return cls(data, cols, row_id, torch.from_numpy(row_start).to(dev),
-                   torch.from_numpy(counts.astype(np.int32)).to(dev),
+        data[slot] = row_vals[rows, j]
+        cols[slot] = row_cols[rows, j].to(cols.dtype)
+        row_id[slot] = rows.to(torch.int32)
+        return cls(data, cols, row_id, row_start, counts.to(torch.int32),
                    shape=(m, n), nnz=nnz, row_cap=row_cap,
                    rows_per_panel=R, panel_width=W)
 
@@ -472,20 +484,27 @@ class CsrOp:
         return self._sliced
 
     def panel_nnz(self) -> torch.Tensor:
-        """Per-panel stored-nonzero counts, (num_panels,) int32 — the
-        predicate of the empty-panel-skipping matvec."""
+        """Per-panel stored-nonzero counts, (num_panels,) int32 on the
+        device — the predicate of the empty-panel-skipping matvec.  Its two
+        flags (an empty panel, panel 0's tail) are memoised from one small
+        host read."""
         if self._panel_nnz is None:
             R = self.rows_per_panel
             m = self._shape[0]
             num_panels = -(-m // R)
-            padded = np.zeros((num_panels * R,), np.int64)
-            padded[:m] = self.row_nnz.cpu().numpy()
-            per_panel = padded.reshape(num_panels, R).sum(axis=1)
-            self._has_empty_panel = bool((per_panel == 0).any())
-            self._panel0_tail = bool(num_panels > 0
-                                     and per_panel[0] < self.panel_width)
-            self._panel_nnz = torch.from_numpy(
-                per_panel.astype(np.int32)).to(self.device)
+            padded = torch.zeros((num_panels * R,), dtype=torch.int64,
+                                 device=self.device)
+            padded[:m] = self.row_nnz
+            per_panel = padded.view(num_panels, R).sum(1)
+            if num_panels:
+                empty, tail = torch.stack(
+                    [(per_panel == 0).any(),
+                     per_panel[0] < self.panel_width]).tolist()
+            else:
+                empty, tail = False, False
+            self._has_empty_panel = bool(empty)
+            self._panel0_tail = bool(tail)
+            self._panel_nnz = per_panel.to(torch.int32)
         return self._panel_nnz
 
     def matvec(self, x: torch.Tensor, *, variant: str | None = None,

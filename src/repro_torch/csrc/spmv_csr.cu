@@ -37,14 +37,22 @@
 // worth_stopping): on a layout without
 // padding the count's load ahead of each chain cost 14%.  Each output
 // stays one fmaf chain over its row's slots in slot order from +0, so the
-// result is bitwise the first port's for every x, does not depend on k,
-// and the predicated variant, the same kernel with panel_nnz, is bitwise
-// equal to the plain one.  Whole rows a warp (lanes on columns, the
-// window loaded once and broadcast from shared memory or registers, up to
-// 16 gathers a lane in flight) ran slower on every layout tried: 0.024
-// ms on both main shapes where this mapping takes 0.017 on the LSQ design
-// (PERF.md).  The 128-row tile padding of the TPU wrapper is not
-// carried over: rows >= m are never computed.
+// result is bitwise the first port's for every x and does not depend on k.
+// The predicated variant, the same kernel with panel_nnz, is bitwise equal
+// to the plain one for finite x: on an empty panel the plain one chains
+// fmaf(+0, x[0, c], acc) over the padding, so a NaN or inf in x's row 0
+// reaches the panel's rows there, where the predicated one writes 0.
+// Whole rows a warp (lanes on columns, the window loaded once and
+// broadcast from shared memory or registers, up to 16 gathers a lane in
+// flight) ran slower on every layout tried: 0.024 ms on both main shapes
+// where this mapping takes 0.017 on the LSQ design (PERF.md).  So did x
+// staged in shared memory by slices of 8 columns (the TPU kernel keeps x
+// whole in VMEM; at n = 4096, k = 51 it does not fit one SM): on the
+// empty-panel design 0.026-0.028 ms against 0.019 for this kernel, whose
+// products alone took 0.013 and whose copy of the slices 0.007
+// (tune/spmv_probe.py --stage-designs keeps that kernel; PERF.md).  The
+// 128-row tile padding of the TPU wrapper is not carried over: rows >= m
+// are never computed.
 //
 // The segment-sum pair replaces src/repro/kernels/spmv_csr.py::spmv_csr and
 // ::spmv_csr_prefetch, which read the flat layout itself: panel p owns slots

@@ -222,7 +222,9 @@ def spmv_csr_sliced(vals, cols, x, *, m, rows_per_panel, counts=None):
 def spmv_csr_sliced_prefetch(vals, cols, panel_nnz, x, *, m, rows_per_panel,
                              counts=None):
     """``spmv_csr_sliced`` with the rows of empty panels (``panel_nnz ==
-    0``) written as zeros; bitwise equal to it."""
+    0``) written as zeros without reading their windows; bitwise equal to
+    it for finite x (an empty panel's padding slots carry a NaN or inf of
+    x's row 0 into the plain twin's rows of that panel)."""
     name = "spmv_csr_sliced_prefetch"
     cuda = _on_cuda(name, vals, cols, panel_nnz, x)
     num_panels = _check_spmv(name, vals, cols, x, m, rows_per_panel, counts)

@@ -8,8 +8,10 @@ matvec shares) and ``::spmv_csr`` / ``::spmv_csr_prefetch`` (the flat
 panel-aligned layout: one thread an output, each row's slots found
 through ``row_start``/``row_nnz`` and chained in slot order, row 0 adding
 panel 0's tail term once where ``panel0_tail``).  Each predicated variant
-writes zeros for empty panels and is bitwise equal to its plain twin.  The
-kernel design and what bounds it are in the source's header note.
+writes zeros for empty panels and is bitwise equal to its plain twin for
+finite x: a NaN or inf in x's row 0 reaches the rows of an empty panel
+through its padding slots (value +0, column 0) in the plain twin only.
+The kernel design and what bounds it are in the source's header note.
 
 These functions take tensors already checked by ``kernels/ops.py`` (CUDA,
 contiguous, matching shapes and types, int32 ``row_start``, ``row_nnz``,
