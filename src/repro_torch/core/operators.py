@@ -62,6 +62,26 @@ def _index_dtype(values_dtype, n: int):
     return torch.int32
 
 
+def _per_panel(counts: torch.Tensor, rows_per_panel: int) -> torch.Tensor:
+    """(num_panels, rows_per_panel) int64 view of per-row counts,
+    zero-padded to whole panels, on the counts' device."""
+    m, R = counts.shape[0], rows_per_panel
+    padded = torch.zeros((-(-m // R) * R,), dtype=torch.int64,
+                         device=counts.device)
+    padded[:m] = counts
+    return padded.view(-1, R)
+
+
+def _layout_scalars(counts: torch.Tensor, rows_per_panel: int):
+    """(count of nonzeros, largest row count, largest panel count) of a
+    CSR layout's per-row counts, in one host read; zeros for no rows."""
+    if not counts.numel():
+        return 0, 0, 0
+    return tuple(torch.stack([
+        counts.sum(), counts.max(),
+        _per_panel(counts, rows_per_panel).sum(1).max()]).tolist())
+
+
 # Columns of one dense matvec product.  cuBLAS picks its kernel, and with
 # it the order of every sum, by shape (at one column a matrix-vector
 # product), so x is cut into groups of this width, the last zero-padded:
@@ -363,8 +383,9 @@ class CsrOp:
     def from_dense(cls, A: torch.Tensor, *, rows_per_panel: int = 8,
                    lane: int = 128, storage_dtype=None) -> "CsrOp":
         """Exact CSR capture of every nonzero of dense ``A``, built with
-        torch ops on A's device; the host reads only the largest row count
-        (and ``torch.nonzero`` its number of nonzeros).
+        torch ops on A's device.  The host reads three scalars in one read
+        (the count of nonzeros, the largest row count and the largest
+        panel count), and ``torch.nonzero`` waits once more for its size.
 
         ``storage_dtype`` rounds the captured values (the pattern is taken
         from the input first, so the stored sparsity does not depend on
@@ -373,9 +394,10 @@ class CsrOp:
         m, n = A.shape
         nz = A != 0
         counts = nz.sum(1)
+        scalars = _layout_scalars(counts, rows_per_panel)
         rows, cols = nz.nonzero(as_tuple=True)          # row-major order
         del nz
-        cap = max(int(counts.max()) if m else 1, 1)
+        cap = max(scalars[1], 1)
         slot = (torch.arange(rows.numel(), device=A.device)
                 - (torch.cumsum(counts, 0) - counts)[rows])
         row_vals = torch.zeros((max(m, 1), cap), dtype=A.dtype,
@@ -388,20 +410,23 @@ class CsrOp:
         if dt is not None:
             row_vals = row_vals.to(dt)
         return cls._assemble(row_vals, row_cols, counts, shape=(m, n),
-                             rows_per_panel=rows_per_panel, lane=lane)
+                             rows_per_panel=rows_per_panel, lane=lane,
+                             scalars=scalars)
 
     @classmethod
     def _assemble(cls, row_vals, row_cols, counts, *, shape,
-                  rows_per_panel: int = 8, lane: int = 128) -> "CsrOp":
+                  rows_per_panel: int = 8, lane: int = 128,
+                  scalars=None) -> "CsrOp":
         """Pack per-row windows into the panel-aligned flat layout, with
         torch ops on the windows' device.
 
         ``row_vals``/``row_cols`` are (m, >= max nnz/row) tensors whose
         first ``counts[r]`` slots hold row ``r``'s values and global column
         ids; slots past the count are ignored.  ``counts`` may be a tensor,
-        a numpy array or a list.  The host reads three scalars: the count
-        of nonzeros, the largest row count and the largest panel count.
-        Offsets are int64 up to the final int32 casts.
+        a numpy array or a list.  ``scalars`` are ``_layout_scalars`` of
+        the counts where the caller has read them already; else the host
+        reads them here, in one read.  Offsets are int64 up to the final
+        int32 casts.
         """
         m, n = shape
         dev = row_vals.device
@@ -409,15 +434,8 @@ class CsrOp:
                                  device=dev).reshape(-1)
         R = rows_per_panel
         num_panels = -(-m // R)
-        padded_counts = torch.zeros((num_panels * R,), dtype=torch.int64,
-                                    device=dev)
-        padded_counts[:m] = counts
-        per_panel = padded_counts.view(num_panels, R)
-        if m:
-            nnz, cap, widest = torch.stack(
-                [counts.sum(), counts.max(), per_panel.sum(1).max()]).tolist()
-        else:
-            nnz, cap, widest = 0, 0, 0
+        per_panel = _per_panel(counts, R)
+        nnz, cap, widest = scalars or _layout_scalars(counts, R)
         row_cap = max(cap, 1)
         W = -(-max(widest, 1) // lane) * lane
         total = num_panels * W + row_cap        # row-window slack at the end
@@ -489,14 +507,8 @@ class CsrOp:
         flags (an empty panel, panel 0's tail) are memoised from one small
         host read."""
         if self._panel_nnz is None:
-            R = self.rows_per_panel
-            m = self._shape[0]
-            num_panels = -(-m // R)
-            padded = torch.zeros((num_panels * R,), dtype=torch.int64,
-                                 device=self.device)
-            padded[:m] = self.row_nnz
-            per_panel = padded.view(num_panels, R).sum(1)
-            if num_panels:
+            per_panel = _per_panel(self.row_nnz, self.rows_per_panel).sum(1)
+            if per_panel.numel():
                 empty, tail = torch.stack(
                     [(per_panel == 0).any(),
                      per_panel[0] < self.panel_width]).tolist()

@@ -6,7 +6,7 @@ row-window kernel.
 
     PYTHONPATH=src python -m repro_torch.tune.spmv_probe [--label C]
         [--turns 2] [--variants gather_only,all_slots,...]
-        [--gather-floor] [--padding-sweep] [--stage-designs]
+        [--gather-floor] [--padding-sweep]
 
 Timed cases (seed 0, k = 51, f32 values and int32 indices), each through
 ``kernels/ops.py``: ``spmv_csr_sliced`` on ``random_sparse_spd(16384,
@@ -28,8 +28,7 @@ lanes and narrower) through the sliced pair and ELL (exact and truncated
 width, a slab of 700 rows of a 3001-column operator), bf16/i16
 and bf16/i32 windows, and an x holding NaN, inf and -0 (both sliced
 twins there, and the predicated one on the empty-panel design too); and
-of the
-segment-sum pair on the same CSR operators and on ``panel0_layouts``
+of the segment-sum pair on the same CSR operators and on ``panel0_layouts``
 (panel 0 ending in a tail, filled exactly, empty) at ``DIGEST_KS``, on
 bf16/i32, and for an x with NaN, inf and -0 in rows 0 and 1 (row 0's
 tail term) and elsewhere, there and on the empty-panel design.  Checks
@@ -39,18 +38,6 @@ segment sum only), the sliced kernel with counts bitwise equal to
 without, and column 0 at k = 51 bitwise equal to k = 1.  Where the tree
 under test takes the CSR row layout (``segsum_rows``), the segment sums
 are given it.
-
-``--stage-designs`` builds ``tune/spmv_staged.cu`` (x staged in shared
-memory by slices of 8 columns: a redesign of ``spmv_csr_sliced_prefetch``
-that lost to the row-window kernel; nothing of the port launches it) and
-``STAGED_PATCHES`` of it, times them on the empty-panel design
-(predicated) and the LSQ design (plain) in clusters of 1, 2 and 4 CTAs,
-each also with every panel taken as empty (the copy of the slices and
-the zeros alone: ``_copy_only``), and the patches at clusters of 1; and
-checks the staged kernel bitwise against the wrapper's matvec on the
-ragged operators at k = 1, 3, 51 and 70 and for x with NaN, inf and -0.
-On the SPD problem a slice of 8 columns of its 16384 rows of x does not
-fit a CTA.
 
 Where the tree under test takes per-row counts (``counts``), the timed
 cases pass what the operators' matvecs pass (``stop_counts``), and the
@@ -86,9 +73,7 @@ widths whose share of padding slots lies near ``SWEEP_PADDING`` (each
 with its counts and without: the two kernels the operators choose
 between at ``kernels/spmv_csr.py::STOP_PADDING_SHARE``).
 
-The build prints each kernel's registers, shared memory and spills
-(``-Xptxas -v``) where the tree's kernels are not built yet.  Prints the
-card (``nvidia-smi``), then one JSON line.  To compare trees,
+Prints the card (``nvidia-smi``), then one JSON line.  To compare trees,
 run this file with ``PYTHONPATH`` at each tree's ``src`` in turns
 (parent, change, change, parent).  Needs a card.
 """
@@ -111,7 +96,7 @@ import torch
 from repro_torch.core.kaczmarz import random_sparse_lsq
 from repro_torch.core.operators import CsrOp, EllOp, as_operator
 from repro_torch.core.spd import random_sparse_spd
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[3]
 K, REPS = 51, 50
@@ -278,121 +263,6 @@ def ragged_dense(m, n, gen, dev, most=70):
 
 COUNTS = "counts" in inspect.signature(ops.spmv_csr_sliced).parameters
 ROWS = "row_start" in inspect.signature(ops.spmv_csr).parameters
-STAGED_CU = Path(__file__).with_name("spmv_staged.cu")
-STAGE_COLUMNS, STAGE_WINDOW_CHUNK = 8, 8       # kStCols, kStChunk there
-STAGE_CLUSTERS = (1, 2, 4)
-_ROWS_LOOP = ("  for (int r = row0 + (int)(threadIdx.x >> 1); r < r1; "
-              "r += kStThreads / 2) {")
-_COPY = "    if (j0 < per) {\n      cg::cluster_group grp"
-# Patched builds of spmv_staged.cu that take the kernel apart (the last
-# four give wrong results: timings only): every CTA copying its slice
-# from row 0 on; the copy by loads that skip L1; CTAs of 512 threads; no
-# copy (the products and stores alone); no rows (the copy alone);
-# neither (the launch); every output computed and none stored.
-STAGED_PATCHES = {
-    "unstaggered": [("      const int off = (int)((long long)me * n / "
-                     "((long long)clusters * gridDim.y));",
-                     "      const int off = 0 * me * clusters;")],
-    "copy_ldcg": [("          g[u] = __ldg(src + (size_t)row[u] * k);",
-                   "          g[u] = __ldcg(src + (size_t)row[u] * k);"),
-                  ("        const float g = __ldg(src + (size_t)r * k);",
-                   "        const float g = __ldcg(src + (size_t)r * k);")],
-    "threads_512": [("constexpr int kStThreads = 1024;",
-                     "constexpr int kStThreads = 512;")],
-    "no_copy": [(_COPY, "    if (false) {\n      cg::cluster_group grp")],
-    "no_rows": [(_ROWS_LOOP, "  for (int r = r1; r < r1; "
-                 "r += kStThreads / 2) {")],
-    "launch_only": [(_COPY, "    if (false) {\n      cg::cluster_group grp"),
-                    (_ROWS_LOOP, "  for (int r = r1; r < r1; "
-                     "r += kStThreads / 2) {")],
-    "no_store": [("      if (4 * half + u < kw) yr[u] = acc[u];",
-                  "      if (4 * half + u < kw && acc[u] == 1234.5f) "
-                  "yr[u] = acc[u];")],
-}
-
-
-def stage_plan(m, n, k, width, sms, capacity, cluster=1):
-    """(blocks, rows_per_cta) of a launch of ``spmv_staged.cu`` for an (m
-    rows, ``width``-slot) sliced view and x (n, k) on a card of ``sms``
-    SMs whose CTAs may opt into ``capacity`` bytes of shared memory, in
-    clusters of ``cluster``; None where 8 columns of all n rows do not fit
-    or the windows are no whole 16-byte chunks.  One CTA an SM: ``sms //
-    groups`` CTAs a column group, rounded down to whole clusters (at least
-    one), no more than one a row, then as many as the rows need, rounded
-    up to whole clusters."""
-    if (0 in (m, n, k) or width % STAGE_WINDOW_CHUNK
-            or 4 * n * STAGE_COLUMNS > capacity):
-        return None
-    groups = -(-k // STAGE_COLUMNS)
-    rows = -(-m // max(cluster, min(sms // groups // cluster * cluster, m)))
-    return -(-(-(-m // rows)) // cluster) * cluster, rows
-
-
-def patched_staged(text: str, variant: str | None) -> str:
-    """``spmv_staged.cu`` with ``STAGED_PATCHES[variant]`` applied (None:
-    as it is); raises if the source does not hold exactly one copy of a
-    line a patch expects."""
-    for old, new in STAGED_PATCHES.get(variant, []):
-        if text.count(old) != 1:
-            raise ValueError(f"{variant}: spmv_staged.cu does not hold "
-                             f"exactly one {old.strip()[:60]!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def _staged_launcher(variant=None):
-    """The staged kernel's C entry, built by ``nvcc`` with the port's flags
-    (``-I csrc``, ``-Xptxas -v``) from ``spmv_staged.cu``, patched by
-    ``variant``, and the compiler's lines on its registers, shared memory
-    and spills."""
-    out = ROOT / "build" / "spmv_probe" / "staged"
-    out.mkdir(parents=True, exist_ok=True)
-    name = variant or "staged"
-    src, lib = out / f"{name}.cu", out / f"{name}.so"
-    src.write_text(patched_staged(STAGED_CU.read_text(), variant))
-    run = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                          "-I", str(_build.CSRC), "-o", str(lib), str(src)],
-                         capture_output=True, text=True)
-    if run.returncode != 0:
-        raise RuntimeError(f"nvcc {name}.cu:\n{run.stdout}{run.stderr}")
-    fn = ctypes.CDLL(str(lib)).spmv_csr_sliced_staged
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    said = (run.stdout + run.stderr).splitlines()
-    at = [i for i, ln in enumerate(said) if "staged_kernel" in ln]
-    return fn, [ln.strip() for i in at[:1] for ln in said[i + 1:i + 4]]
-
-
-def _staged(fn, op, x, prefetch=True, counts="main", cluster=1, pn=None):
-    """The staged kernel ``fn`` on ``op`` and ``x`` (the predicated twin,
-    or the plain sliced matvec with ``prefetch`` False) in clusters of
-    ``cluster`` CTAs; ``pn`` replaces the operator's ``panel_nnz``."""
-    vals, cols = op.sliced_rows()
-    m, k = op.shape[0], x.shape[1]
-    props = torch.cuda.get_device_properties(x.device)
-    plan = stage_plan(m, x.shape[0], k, vals.shape[1],
-                      props.multi_processor_count,
-                      props.shared_memory_per_block_optin, cluster)
-    if plan is None:
-        raise ValueError(f"no staged launch for {op.shape} k={k}")
-    y = torch.empty((m, k), device=x.device)
-    if pn is None and prefetch:
-        pn = op.panel_nnz()
-    c = _counts(op, counts, k).get("counts")
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    def run():
-        err = fn(vals.data_ptr(), cols.data_ptr(), ptr(c), ptr(pn),
-                 x.data_ptr(), y.data_ptr(), m, x.shape[0], vals.shape[1], k,
-                 op.rows_per_panel, *plan, cluster,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"spmv_csr_sliced_staged: CUDA error {err}")
-        return y
-    return run
 
 
 def _counts(op, use, k):
@@ -743,61 +613,6 @@ def _padding_sweep(dev) -> dict:
     return res
 
 
-def _stage_designs(dev) -> tuple[dict, list]:
-    """Graph ms of ``spmv_staged.cu`` in clusters of each of
-    ``STAGE_CLUSTERS`` CTAs on the empty-panel design (predicated) and the
-    LSQ design (plain), each also with every panel taken as empty
-    (``_copy_only``), and of each of ``STAGED_PATCHES`` in clusters of 1
-    on the empty-panel design, beside the compiler's lines on the kernel
-    (``ptxas``); and the checks that failed: the staged
-    kernel bitwise the wrapper's matvec on those two, on the ragged f32
-    operators with their counts at k = 1, 3, 51, 70, and for x with NaN,
-    inf and -0."""
-    base, ptxas = _staged_launcher()
-    gen = torch.Generator(dev).manual_seed(0)
-    lsq = random_sparse_lsq(32768, 4096, row_nnz=16, n_rhs=K, seed=0,
-                            device=dev)
-    x = torch.randn((4096, K), generator=gen, device=dev)
-    holes = as_operator(_holes(lsq.A), "csr")
-    cases = {"holes": (holes, True), "lsq": (as_operator(lsq.A, "csr"),
-                                             False)}
-    res, failed = {"ptxas": ptxas}, []
-    for name, (op, pre) in cases.items():
-        want = _sliced(op, x, prefetch=pre)()
-        for cluster in STAGE_CLUSTERS:
-            run = _staged(base, op, x, pre, cluster=cluster)
-            if not torch.equal(run(), want):
-                failed.append(f"staged in clusters of {cluster} on {name}: "
-                              "bitwise the wrapper's matvec")
-            res[f"{name}_cluster{cluster}"] = _graph_ms(run)
-            empty = torch.zeros_like(op.panel_nnz())
-            res[f"{name}_cluster{cluster}_copy_only"] = _graph_ms(
-                _staged(base, op, x, cluster=cluster, pn=empty))
-    for variant in STAGED_PATCHES:
-        res[f"holes_{variant}"] = _graph_ms(
-            _staged(_staged_launcher(variant)[0], holes, x))
-    xh = x.clone()
-    xh[0, :3] = torch.tensor([float("nan"), float("inf"), -0.0])
-    xh[5, 7], xh[9] = float("-inf"), -0.0
-    special = [("holes, x with NaN/inf/-0", holes, xh)]
-    for R in (1, 8):
-        for most in (70, 24):
-            op = CsrOp.from_dense(ragged_dense(3001, 2500, gen, dev, most),
-                                  rows_per_panel=R)
-            for k in (1, 3, 51, 70):
-                special.append((f"R{R} nnz{most} k={k}", op, torch.randn(
-                    (2500, k), generator=gen, device=dev)))
-            xz = torch.randn((2500, K), generator=gen, device=dev)
-            xz[3, 5], xz[7, 0], xz[0] = float("nan"), float("inf"), -0.0
-            special.append((f"R{R} nnz{most}, x with NaN/inf/-0", op, xz))
-    for tag, op, xz in special:
-        got = _staged(base, op, xz, counts="rows")()
-        want = _sliced(op, xz, prefetch=True, counts="rows")()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            failed.append(f"staged bitwise the wrapper's matvec, {tag}")
-    return res, failed
-
-
 def _child(only) -> dict:
     """Runs on a patched copy: graph ms of the row-window cases."""
     cases = _timed_cases("cuda", only)
@@ -829,7 +644,6 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", default="")
     ap.add_argument("--gather-floor", action="store_true")
     ap.add_argument("--padding-sweep", action="store_true")
-    ap.add_argument("--stage-designs", action="store_true")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -839,7 +653,6 @@ def main(argv=None) -> int:
     unknown = set(names) - set(VARIANTS)
     if unknown:
         ap.error(f"unknown variants {sorted(unknown)}")
-    _build.build_all(verbose=True)
     cases = _timed_cases("cuda")
     turns = []
     for _ in range(args.turns):
@@ -852,9 +665,6 @@ def main(argv=None) -> int:
     extra = {}
     if args.gather_floor:
         extra["gather_floor"] = _gather_floor("cuda")
-    if args.stage_designs:
-        extra["stage_designs"], bad = _stage_designs("cuda")
-        failed += bad
     if args.padding_sweep:
         extra["padding_sweep"] = _padding_sweep("cuda")
         failed += [f"padding sweep {w}: with counts == without"

@@ -126,17 +126,28 @@ def test_assemble_takes_counts_of_any_kind(counts_as, R):
 
 def test_build_reads_no_array_back(monkeypatch):
     """The build and ``panel_nnz()`` copy no tensor to the host: no
-    ``.cpu()``, ``.numpy()`` or ``.item()`` (a handful of scalars come
-    back through ``.tolist()`` and ``int()``)."""
+    ``.cpu()``, ``.numpy()``, ``.item()`` or ``int()``.  The build reads
+    its three scalars in one ``.tolist()``, ``panel_nnz()`` its two flags
+    in one more."""
     A = torch.from_numpy(_dense("empty0", 53, 80))
 
     def refuse(self, *args, **kwargs):
         raise AssertionError("an array read back to the host")
 
-    for name in ("cpu", "numpy", "item"):
+    reads = []
+    tolist = torch.Tensor.tolist
+
+    def counted(self):
+        reads.append(self.numel())
+        return tolist(self)
+
+    for name in ("cpu", "numpy", "item", "__int__"):
         monkeypatch.setattr(torch.Tensor, name, refuse)
+    monkeypatch.setattr(torch.Tensor, "tolist", counted)
     op = CsrOp.from_dense(A, rows_per_panel=8, storage_dtype="bfloat16")
+    assert reads == [3]
     op.panel_nnz()
     op.segsum_rows()
     monkeypatch.undo()
+    assert reads == [3, 2]
     assert op._has_empty_panel and op._panel0_tail
