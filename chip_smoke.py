@@ -19,7 +19,14 @@ distributed Kaczmarz engine (``solve`` with
 ``Schedule(rounds=, local_steps=)`` and a process group; one local-phase
 launch per round) at P = 1 in this process on the LSQ problem (CSR) and
 the banded problem, and at P = 4 in four spawned processes that share the
-card through a gloo group.  It holds the two paths of the GS and of both
+card through a gloo group.  It drives the serving path
+(``repro_torch.serve.SolverService`` over the CSR GS and RK problems,
+``solve_batched`` and ``sequential_chunk``: tenants batched onto one
+launch per chunk, padded columns bitwise their solo solves, early exits,
+deadlines, streamed partials, an open-loop load batched and serial, and
+``python -m repro_torch.launch.serve`` in a child process) and times a
+served chunk from Python, from a CUDA graph and with the host's per-chunk
+reads.  It holds the two paths of the GS and of both
 Kaczmarz sweeps (the iterate in shared memory, or in global memory when it
 is too tall) against the plain version and against each other (the
 Kaczmarz sweeps also on rows wider than the main path's), the two banded
@@ -178,6 +185,21 @@ P4 = 4
 P4_SPARSE_ROUNDS, P4_SPARSE_STEPS, P4_SPARSE_BETA = 64, 512, 0.9
 P4_BANDED_ROUNDS, P4_BANDED_STEPS = 60, 32
 P4_FALL, P4_REL = 1e-2, 1e-2  # residual falls 100-fold; final rel < 1e-2
+# The serving phase (serving_phase): the main SPD problem served by GS and
+# the main LSQ design by RK, both on CSR, in chunks of SERVE_REC picks, at
+# most 32 sweeps (GS: rtol 1e-3 needs about 10-18 at lam in [0.79, 1.21])
+# and 8 sweeps (RK) a batch; RK requests take b in A's range (the
+# problem's own columns).  The open-loop load: SERVE_LOAD_REQUESTS at
+# SERVE_LOAD_HZ, widths SERVE_LOAD_WIDTHS, batched (max_batch
+# SERVE_MAX_BATCH, admission window SERVE_WINDOW_S) and serial.
+SERVE_REC, SERVE_ITERS, SERVE_RK_ITERS = 4096, 32 * SPD_N, 8 * LSQ_M
+SERVE_SEED, SERVE_RTOL, SERVE_LOOSE, SERVE_TIGHT = SEED + 31, 1e-3, 0.1, 2e-4
+SERVE_RK_RTOL = 1e-2
+SERVE_MAX_BATCH, SERVE_WINDOW_S, SERVE_TIMEOUT_S = 32, 0.002, 120.0
+SERVE_CHAIN = 4             # chained chunks held against solve_sequential
+SERVE_LOAD_REQUESTS, SERVE_LOAD_HZ, SERVE_LOAD_WIDTHS = 32, 200.0, (1, 2, 4)
+SERVE_CLI_N, SERVE_CLI_REQUESTS = 4096, 16
+SERVE_TIME_REPS = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -680,6 +702,350 @@ def block_gs_beyond_main(torch, ops, launcher, ref, gen, dev) -> None:
                           f"block_gs_sweep {tag}: column 0 bitwise equals "
                           f"column 0 at k={kmax}")
         del A32, A
+
+
+def serving_phase(torch, ops, spd, lsq, launches) -> None:
+    """The serving path on the card: ``SolverService.register``/``submit``
+    down to the sweep, matvec and ``colsum`` kernels (checks (a)-(h)), an
+    open-loop load batched and serial, ``launch.serve`` in a child
+    process, and a chunk's times (from Python, from one CUDA graph, with
+    the service's per-chunk host reads).  The launch counters are set to 0
+    after the warmup and read after each step: a step must have launched
+    one sweep, one CSR matvec and one ``colsum`` per chunk and nothing
+    else.  The steps' launches go into ``launches``."""
+    import numpy as np
+
+    from repro_torch.core.engine import (draw_picks, sequential_chunk,
+                                         solve_batched, solve_sequential)
+    from repro_torch.serve import (RHS_BUCKETS, ExecutorCache, SolverService,
+                                   bucket_rhs, open_loop_load)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 41)
+
+    def gauss(n, k):
+        return rng.standard_normal((n, k)).astype(np.float32)
+
+    def service(max_batch=SERVE_MAX_BATCH, warm=RHS_BUCKETS, rk=True):
+        svc = SolverService(num_iters=SERVE_ITERS, record_every=SERVE_REC,
+                            max_batch=max_batch,
+                            batch_window_s=SERVE_WINDOW_S,
+                            cache=ExecutorCache())
+        svc.register("gs", spd.A, action="gs", format="csr",
+                     seed=SERVE_SEED, warmup_buckets=warm)
+        if rk:
+            svc.register("rk", lsq.A, action="rk", format="csr",
+                         seed=SERVE_SEED + 1, num_iters=SERVE_RK_ITERS,
+                         warmup_buckets=warm)
+        return svc
+
+    t0 = time.perf_counter()
+    svc = service()
+    print(f"  registered random_sparse_spd({SPD_N}, row_nnz={SPD_ROW_NNZ}) "
+          f"as gs ({SERVE_ITERS} picks at most) and random_sparse_lsq("
+          f"{LSQ_M}, {LSQ_N}) as rk ({SERVE_RK_ITERS}) on CSR, chunks of "
+          f"{SERVE_REC} picks, one warmup chunk per bucket {RHS_BUCKETS}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    gs_op, rk_op = svc._problems["gs"].op, svc._problems["rk"].op
+    total = dict.fromkeys(ops.KERNELS, 0)
+    chunks = {"gs": 0, "rk": 0}
+
+    def step(tag, run):
+        """``run()`` with the counters set to 0 just before it; it returns
+        (its result, {action: chunks it ran}).  The counts must be one
+        sweep, one matvec and one colsum a chunk, and nothing else."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, ran = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        expect = {f"sweep_rows_{a}": c for a, c in ran.items() if c}
+        expect["spmv_csr_sliced"] = expect["colsum"] = sum(ran.values())
+        check(got == {name: expect.get(name, 0) for name in ops.KERNELS},
+              f"serving, {tag}: launched exactly {expect} ({wall:.3f} s)")
+        for name, n in got.items():
+            total[name] += n
+            launches[name] += n
+        for a, c in ran.items():
+            chunks[a] += c
+        return res
+
+    def served(s, *reqs):
+        """Submit every (problem, b, keywords) before the loop starts (so
+        they share a batch where they can) and wait for all: (results,
+        tickets, chunks the service ran)."""
+        before = s.stats.chunk_launches
+        tickets = [s.submit(name, b, **kw) for name, b, kw in reqs]
+        with s:
+            results = [t.result(timeout=SERVE_TIMEOUT_S) for t in tickets]
+        return results, tickets, s.stats.chunk_launches - before
+
+    # (a) three tenants queued before start share one batch and one miss;
+    # a later batch in the same bucket (width 6, bucket 8) is a hit
+    fresh = service(warm=(), rk=False)
+    blocks = [gauss(SPD_N, w) for w in (1, 2, 3)]
+
+    def tenants():
+        rs, _, c = served(fresh, *(("gs", b, dict(rtol=SERVE_RTOL))
+                                   for b in blocks))
+        first = (rs, fresh.stats.batches, fresh.executors.stats())
+        (r2,), _, c2 = served(fresh, ("gs", gauss(SPD_N, 6),
+                                      dict(rtol=SERVE_RTOL)))
+        return (first, r2, fresh.executors.stats()), {"gs": c + c2}
+    (rs, nb, cache), r2, cache2 = step(
+        "(a) tenants of widths 1, 2, 3, then a width-6 batch", tenants)
+    check(nb == 1 and cache == {"hits": 0, "misses": 1, "entries": 1},
+          f"(a) three tenants queued before start ran as one batch "
+          f"(batches {nb}, cache {cache})")
+    check(all(bool(r.converged.all()) and r.x.shape == b.shape
+              and r.x.device.type == "cpu" and bool(
+                  (r.resid.numpy() <= SERVE_RTOL
+                   * np.linalg.norm(b, axis=0)).all())
+              for r, b in zip(rs, blocks)),
+          "(a) each tenant got its own columns on the host, converged to "
+          f"rtol {SERVE_RTOL:g} (rounds "
+          + ", ".join(str(r.rounds.tolist()) for r in rs) + ")")
+    check(bool(r2.converged.all())
+          and cache2 == {"hits": 1, "misses": 1, "entries": 1},
+          f"(a) a later batch in the same bucket is a hit ({cache2})")
+    del fresh
+
+    # (b) and (e): widths 3, 5 and 51 bitwise their unpadded solo solves;
+    # the width-3 request's partials stream in order, padding stripped
+    def padded_vs_solo(b, seen):
+        (r,), (t,), c = served(svc, ("gs", b, dict(
+            rtol=SERVE_RTOL, on_progress=seen.append)))
+        solo = solve_batched(
+            gs_op, torch.from_numpy(b).to(gs_op.device), action="gs",
+            num_iters=SERVE_ITERS, record_every=SERVE_REC,
+            tol=t.request.tol,
+            generator=torch.Generator(gs_op.device).manual_seed(SERVE_SEED))
+        return (r, t, solo, c), {"gs": c + solo.iters_run // SERVE_REC}
+
+    for k in (3, 5, K):
+        seen = []
+        r, t, solo, c = step(
+            f"(b) a width-{k} request (bucket {bucket_rhs(k)}) and its solo "
+            "solve", functools.partial(padded_vs_solo, gauss(SPD_N, k), seen))
+        check(torch.equal(r.x, solo.x.cpu())
+              and torch.equal(r.resid, solo.resid.cpu())
+              and torch.equal(r.rounds, solo.rounds)
+              and bool(r.converged.all()),
+              f"(b) width {k} served in bucket {bucket_rhs(k)} is bitwise its "
+              f"unpadded solo solve_batched (x, resid and rounds, "
+              f"{int(r.rounds.min())}-{int(r.rounds.max())}), converged")
+        print(f"  width {k}: {c} chunks in {1e3 * r.latency_s:.2f} ms from "
+              f"submit to result, {1e3 * r.latency_s / c:.4f} ms a chunk",
+              flush=True)
+        if k == 3:
+            iters = [p.iters for p in t.partials]
+            check(t.partials == seen and len(iters) > 1
+                  and iters == sorted(set(iters))
+                  and all(p.x.shape == (SPD_N, 3) and p.resid.shape == (3,)
+                          and p.x.device.type == "cpu" for p in t.partials)
+                  and all(i < r.iters_run for i in iters),
+                  f"(e) {len(iters)} partials in increasing iteration order, "
+                  "padding stripped, on the host, before the exit record")
+
+    # (c) a loose tenant leaves its batch before a tight one
+    def loose_tight():
+        b0 = svc.stats.batches
+        (lo, ti), (tl, tt), c = served(
+            svc, ("gs", gauss(SPD_N, 1), dict(rtol=SERVE_LOOSE)),
+            ("gs", gauss(SPD_N, 1), dict(rtol=SERVE_TIGHT)))
+        return (lo, ti, tl, tt, svc.stats.batches - b0), {"gs": c}
+    lo, ti, tl, tt, nb = step(f"(c) a loose (rtol {SERVE_LOOSE:g}) and a "
+                              f"tight (rtol {SERVE_TIGHT:g}) tenant",
+                              loose_tight)
+    check(nb == 1 and bool(lo.converged.all()) and bool(ti.converged.all())
+          and int(lo.rounds.max()) < int(ti.rounds.max())
+          and len(tl.partials) < len(tt.partials),
+          f"(c) in one batch the loose tenant left at record "
+          f"{int(lo.rounds.max())}, the tight one at {int(ti.rounds.max())}")
+
+    # (d) a request past its deadline leaves after one chunk, unconverged
+    def deadline():
+        e0 = svc.stats.deadline_expired
+        (r,), _, c = served(svc, ("gs", gauss(SPD_N, 1),
+                                  dict(rtol=1e-12, deadline_s=0.0)))
+        return (r, svc.stats.deadline_expired - e0), {"gs": c}
+    r, expired = step("(d) a request with deadline_s=0", deadline)
+    check(not bool(r.converged.any()) and r.iters_run == SERVE_REC
+          and expired == 1 and bool(torch.isfinite(r.resid).all()),
+          f"(d) deadline_s=0: completed after one chunk ({r.iters_run} "
+          f"iterations), unconverged, deadline_expired +{expired}")
+
+    # (g) chained sequential_chunk over a solve_sequential stream
+    def chained(action, op, b):
+        gen = torch.Generator(op.device).manual_seed(SEED + 43)
+        n_x = op.shape[0] if action == "gs" else op.shape[1]
+        x0 = torch.zeros((n_x, K), device=op.device)
+        picks = draw_picks(op, action, SERVE_CHAIN * SERVE_REC,
+                           generator=gen)
+        one = solve_sequential(op, b, x0, None, action=action,
+                               num_iters=SERVE_CHAIN * SERVE_REC,
+                               picks=picks, record_every=SERVE_REC)
+        x, rn = x0, (op.row_norms_sq() if action == "rk" else None)
+        resids = []
+        for c in range(SERVE_CHAIN):
+            x, resid = sequential_chunk(
+                op, b, x, picks[c * SERVE_REC:(c + 1) * SERVE_REC],
+                action=action, rn=rn)
+            resids.append(resid)
+        return (one, x, torch.stack(resids)), {action: 2 * SERVE_CHAIN}
+
+    for action, op, b in (("gs", gs_op, spd.b), ("rk", rk_op, lsq.b)):
+        one, x, resids = step(
+            f"(g) {action}: solve_sequential and {SERVE_CHAIN} chained chunks",
+            functools.partial(chained, action, op, b))
+        check(torch.equal(x, one.x) and torch.equal(resids, one.resid),
+              f"(g) {action} on CSR, k={K}: {SERVE_CHAIN} chained "
+              "sequential_chunk calls are bitwise solve_sequential's final x "
+              "and its record residuals")
+
+    # (h) a Kaczmarz request (b in A's range) is bitwise its solo solve
+    def rk_request():
+        b = lsq.b[:, :3].contiguous()
+        (r,), (t,), c = served(svc, ("rk", b, dict(rtol=SERVE_RK_RTOL)))
+        solo = solve_batched(
+            rk_op, b, action="rk", num_iters=SERVE_RK_ITERS,
+            record_every=SERVE_REC, tol=t.request.tol,
+            generator=torch.Generator(rk_op.device).manual_seed(
+                SERVE_SEED + 1))
+        return (r, t, solo), {"rk": c + solo.iters_run // SERVE_REC}
+    r, t, solo = step(f"(h) an RK request of width 3 (rtol "
+                      f"{SERVE_RK_RTOL:g}) and its solo solve", rk_request)
+    b_norm = torch.linalg.vector_norm(t.request.b, dim=0).cpu()
+    check(torch.equal(r.x, solo.x.cpu())
+          and torch.equal(r.resid, solo.resid.cpu())
+          and torch.equal(r.rounds, solo.rounds)
+          and bool((r.resid < b_norm).all()),
+          "(h) RK width 3 is bitwise its solo solve_batched, and its "
+          "residual falls from ||b|| (x0 = 0); relative resid "
+          + ", ".join(f"{v:.4e}" for v in (r.resid / b_norm).tolist())
+          + (" at the first record " + ", ".join(
+              f"{v:.4e}" for v in (t.partials[0].resid / b_norm).tolist())
+             if t.partials else "")
+          + f"; {r.iters_run} iterations, rounds {r.rounds.tolist()}, "
+          f"converged {r.converged.tolist()}")
+
+    # An open-loop load, batched then serial: the same arrivals, RHS and
+    # stream, so each request must take the same rounds in both.
+    def load(s):
+        c0, b0, cache0 = (s.stats.chunk_launches, s.stats.batches,
+                          s.executors.stats())
+        with s:
+            rep = open_loop_load(s, "gs", requests=SERVE_LOAD_REQUESTS,
+                                 rate_hz=SERVE_LOAD_HZ,
+                                 rhs_widths=SERVE_LOAD_WIDTHS,
+                                 rtol=SERVE_RTOL, seed=SEED + 44)
+        cache1 = s.executors.stats()
+        c, nb = s.stats.chunk_launches - c0, s.stats.batches - b0
+        each = list(zip(s.stats.batch_widths[-nb:],
+                        s.stats.batch_seconds[-nb:]))
+        return (rep, nb, c, {f: cache1[f] - cache0[f] for f in cache1},
+                each), {"gs": c}
+
+    loads = {}
+    for mode, s in (("batched", svc), ("serial", None)):
+        if s is None:
+            s = service(max_batch=1, warm=SERVE_LOAD_WIDTHS, rk=False)
+        rep, nb, c, cache, each = loads[mode] = step(
+            f"open-loop load, {mode}", functools.partial(load, s))
+        window = nb * SERVE_WINDOW_S / rep.makespan_s
+        print(f"  load {mode}: {SERVE_LOAD_REQUESTS} requests at "
+              f"{SERVE_LOAD_HZ:g} Hz, widths {SERVE_LOAD_WIDTHS}, rtol "
+              f"{SERVE_RTOL:g}: qps {rep.qps:.3f}, p50 {rep.p50_ms:.3f} ms, "
+              f"p99 {rep.p99_ms:.3f} ms, mean {rep.mean_ms:.3f} ms, makespan "
+              f"{rep.makespan_s:.4f} s, batches {nb}, chunk_launches {c}, "
+              f"cache during the load {cache}, admission window "
+              f"{100 * window:.2f}% of the makespan; batches (width, s): "
+              + ", ".join(f"({w}, {t:.4f})" for w, t in each), flush=True)
+        check(rep.converged == SERVE_LOAD_REQUESTS,
+              f"load {mode}: every request converged ({rep.converged})")
+    check(loads["batched"][1] < SERVE_LOAD_REQUESTS,
+          f"load batched: {loads['batched'][1]} batches for "
+          f"{SERVE_LOAD_REQUESTS} requests")
+    check(loads["batched"][0].rounds_per_request
+          == loads["serial"][0].rounds_per_request,
+          "each request of the load took the same rounds batched and serial "
+          "(" + ", ".join(map(str, loads["serial"][0].rounds_per_request))
+          + ")")
+    check(total == {name: {"sweep_rows_gs": chunks["gs"],
+                           "sweep_rows_rk": chunks["rk"],
+                           "spmv_csr_sliced": sum(chunks.values()),
+                           "colsum": sum(chunks.values())}.get(name, 0)
+                    for name in ops.KERNELS},
+          f"(f) across the serving phase {chunks} chunks, each one sweep, "
+          "one CSR matvec and one colsum, and nothing else ("
+          + str({k: v for k, v in total.items() if v}) + ")")
+
+    # launch.serve in a child process
+    t0 = time.perf_counter()
+    argv = ["--n", str(SERVE_CLI_N), "--row-nnz", str(SPD_ROW_NNZ),
+            "--requests", str(SERVE_CLI_REQUESTS)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        text = proc.communicate(timeout=300)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in text.splitlines()[-8:]:
+        print(f"    [launch.serve] {line}", flush=True)
+    said = [ln for ln in text.splitlines() if ln.startswith("[serve]")]
+    check(proc.returncode == 0 and len(said) == 2,
+          f"python -m repro_torch.launch.serve {' '.join(argv)} exited 0 "
+          f"with both [serve] lines ({time.perf_counter() - t0:.2f} s)")
+
+    # One chunk's times, printed and not checked: from Python, replayed
+    # from one CUDA graph, and on the host's clock with the service's
+    # per-chunk reads (the resid for the tolerance test; the partials' copy
+    # of x's real columns).
+    picks = torch.randint(0, SPD_N, (SERVE_REC,), dtype=torch.int32,
+                          generator=torch.Generator(gs_op.device)
+                          .manual_seed(SEED + 45), device=gs_op.device)
+
+    def host_ms(b, x, reads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_TIME_REPS):
+            x, resid = sequential_chunk(gs_op, b, x, picks, action="gs")
+            if reads >= 1:
+                resid.cpu()
+            if reads >= 2:
+                x[:, :b.shape[1] - 1].cpu()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SERVE_TIME_REPS
+
+    for kb in (4, 64):
+        b = torch.randn((SPD_N, kb), generator=torch.Generator(
+            gs_op.device).manual_seed(SEED + 46), device=gs_op.device)
+        x = torch.zeros_like(b)
+        chunk = functools.partial(sequential_chunk, gs_op, b, x, picks,
+                                  action="gs")
+        py_ms = cuda_ms(chunk, SERVE_TIME_REPS)
+        g_ms = graph_ms(chunk, SERVE_TIME_REPS)
+        sweep_ms = cuda_ms(functools.partial(gs_op.gs_sweep, b, x, picks),
+                           SERVE_TIME_REPS)
+        host_ms(b, x, 2)
+        bare, resid_ms, partial_ms = (host_ms(b, x, 0), host_ms(b, x, 1),
+                                      host_ms(b, x, 2))
+        print(f"  chunk of {SERVE_REC} picks at k={kb} (sweep + matvec + "
+              f"colsum): {py_ms:.4f} ms from Python (CUDA events), "
+              f"{g_ms:.4f} ms from one CUDA graph, the sweep alone "
+              f"{sweep_ms:.4f} ms; host clock per chunk {bare:.4f} ms with "
+              f"no read, {resid_ms:.4f} ms with the resid read, "
+              f"{partial_ms:.4f} ms with the resid read and the partials' "
+              f"copy of x ({kb - 1} columns): host share "
+              f"{100 * (1 - g_ms / partial_ms):.1f}%", flush=True)
+    print(f"  serving phase: {time.perf_counter() - t_phase:.2f} s wall",
+          flush=True)
 
 
 def main() -> int:
@@ -1992,6 +2358,10 @@ def main() -> int:
           f"error after {RK_SWEEPS} sweeps: "
           f"{float((rk.err_sq[-1] / (lsq.x_star ** 2).sum(0)).mean()):.4e}",
           flush=True)
+
+    print("== serving: SolverService over the CSR GS and RK problems",
+          flush=True)
+    serving_phase(torch, ops, spd, lsq, launches)
 
     print(f"== timing (CUDA events, f32/i32 storage, k={K})", flush=True)
     lines = []

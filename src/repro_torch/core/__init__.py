@@ -1,14 +1,17 @@
 """repro_torch.core — the paper's randomized solvers on PyTorch: problems
 (``spd``, ``kaczmarz``), matrix formats (``operators``), the sequential
-engine with its front door ``solve`` (``engine``), its dense GS wrappers
+engine with its front door ``solve`` and its serving unit
+``solve_batched`` (``engine``), its dense GS wrappers
 (``rgs``) and the distributed engine on ``torch.distributed``
 (``distributed``)."""
 
 from repro_torch.core import distributed, engine
 from repro_torch.core.distributed import solve_distributed
-from repro_torch.core.engine import (ParallelSolveResult, Schedule,
+from repro_torch.core.engine import (BatchedSolveResult,
+                                     ParallelSolveResult, Schedule,
                                      SolveResult, draw_picks, record_metrics,
-                                     sample_rows, scheduled_tau, solve,
+                                     sample_rows, scheduled_tau,
+                                     sequential_chunk, solve, solve_batched,
                                      solve_sequential)
 from repro_torch.core.kaczmarz import LSQProblem, random_sparse_lsq, row_norms_sq
 from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp, EllOp,
@@ -19,6 +22,7 @@ from repro_torch.core.spd import (SPDProblem, a_norm_sq, block_banded_spd,
                                   random_sparse_spd, to_unit_diagonal)
 
 __all__ = [
+    "BatchedSolveResult",
     "BlockBandedOp",
     "CsrOp",
     "DenseOp",
@@ -45,7 +49,9 @@ __all__ = [
     "row_norms_sq",
     "sample_rows",
     "scheduled_tau",
+    "sequential_chunk",
     "solve",
+    "solve_batched",
     "solve_distributed",
     "solve_sequential",
     "to_unit_diagonal",

@@ -27,13 +27,18 @@ stream, which is how the tests feed both packages the same directions.
 A ``Schedule`` with ``rounds``/``local_steps`` runs the distributed
 engine on a ``torch.distributed`` process group (``solve(..., group=)``).
 
+The serving unit is ``sequential_chunk`` (one record chunk: the sweep and
+the residual) and ``solve_batched`` (chunks with per-column tolerances and
+early exit), which ``serve/`` drives.
+
 Not ported yet: the bounded-delay simulator (ROADMAP queue 1 item 6), the
-serving unit (item 4), the distributed strategies other than Kaczmarz
-under the delta all-reduce (item 8) and block GS with ``gs_block > 1`` on
-the CSR format (queue 1 item 3).
+distributed strategies other than Kaczmarz under the delta all-reduce
+(item 8) and block GS with ``gs_block > 1`` on the CSR format (queue 1
+item 3).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -243,6 +248,68 @@ def draw_picks(op, action: str, num_iters: int, *,
     raise ValueError(f"unknown action: {action!r}")
 
 
+def direction_stream(op, action: str, num_iters: int, *,
+                     generator: torch.Generator | None,
+                     picks: torch.Tensor | None,
+                     block: int = 1) -> torch.Tensor:
+    """The checked direction stream of a sequential solve, as contiguous
+    int32 on the operator's device, so that each chunk's slice reaches the
+    sweep wrappers without a copy.
+
+    Checks ``action``, ``block`` and the format against each other, then
+    draws ``num_iters`` picks from ``generator`` or checks the given
+    ``picks`` (shape, and every id in range: one read of the stream's
+    minimum and maximum, once per solve).
+    """
+    if action not in ("gs", "rk"):
+        raise ValueError(f"unknown action: {action!r}")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    if block > 1 and action != "gs":
+        raise ValueError(
+            f"block={block} is a Gauss-Seidel granularity; the Kaczmarz "
+            "action steps row by row (block=1)")
+    if block > 1 and not isinstance(op, DenseOp):
+        raise NotImplementedError(
+            f"block GS with block={block} runs on the dense format only "
+            f"(got {type(op).__name__}); CSR row panels are not ported yet "
+            "(ROADMAP queue 1 item 3)")
+    if action == "rk" and isinstance(op, BlockBandedOp):
+        raise NotImplementedError(
+            "sequential RK needs per-row access (dense, ELL or CSR); the "
+            "banded Kaczmarz action belongs to the distributed engine "
+            "(Schedule(rounds=..., local_steps=...) with a group)")
+    if picks is None:
+        if generator is None:
+            raise ValueError("a sequential solve needs a generator or picks")
+        picks = draw_picks(op, action, num_iters, generator=generator,
+                           block=block)
+    else:
+        picks = torch.as_tensor(picks, device=op.device)
+        if picks.shape != (num_iters,):
+            raise ValueError(f"picks has shape {tuple(picks.shape)}, "
+                             f"expected ({num_iters},)")
+        lo, hi = (int(v) for v in torch.aminmax(picks))
+        top = num_directions(op, action, block)
+        if lo < 0 or hi >= top:
+            raise IndexError(f"pick ids span [{lo}, {hi}], allowed "
+                             f"[0, {top})")
+    return picks.to(torch.int32).contiguous()
+
+
+def sweep(op, b, x, picks, *, action: str, beta: float, block: int, rn):
+    """One record chunk's steps: one ``op.gs_sweep`` / ``op.rk_sweep``
+    call (``rn`` the Kaczmarz divisor), or with ``block > 1`` (dense block
+    GS) one ``op.block_gs_sweep`` call."""
+    if block > 1:
+        return op.block_gs_sweep(b, x, picks, block=block, beta=beta)
+    if action == "gs":
+        return op.gs_sweep(b, x, picks, beta=beta)
+    if action == "rk":
+        return op.rk_sweep(b, rn, x, picks, beta=beta)
+    raise ValueError(f"unknown action: {action!r}")
+
+
 def solve_sequential(
     op,
     b: torch.Tensor,
@@ -264,58 +331,134 @@ def solve_sequential(
     ``op.gs_sweep`` / ``op.rk_sweep`` call, or with ``block > 1`` (dense
     block GS) one ``op.block_gs_sweep`` call.  ``x0`` is not modified.
     """
-    if action not in ("gs", "rk"):
-        raise ValueError(f"unknown action: {action!r}")
-    if block < 1:
-        raise ValueError(f"block must be >= 1, got {block}")
-    if block > 1 and action != "gs":
-        raise ValueError(
-            f"block={block} is a Gauss-Seidel granularity; the Kaczmarz "
-            "action steps row by row (block=1)")
-    if block > 1 and not isinstance(op, DenseOp):
-        raise NotImplementedError(
-            f"block GS with block={block} runs on the dense format only "
-            f"(got {type(op).__name__}); CSR row panels are not ported yet "
-            "(ROADMAP queue 1 item 3)")
-    if action == "rk" and isinstance(op, BlockBandedOp):
-        raise NotImplementedError(
-            "sequential RK needs per-row access (dense, ELL or CSR); the "
-            "banded Kaczmarz action belongs to the distributed engine "
-            "(Schedule(rounds=..., local_steps=...) with a group)")
     rec = resolve_record_every(num_iters, record_every)
-    if picks is None:
-        if generator is None:
-            raise ValueError("solve_sequential needs a generator or picks")
-        picks = draw_picks(op, action, num_iters, generator=generator,
-                           block=block)
-    else:
-        picks = torch.as_tensor(picks, device=op.device)
-        if picks.shape != (num_iters,):
-            raise ValueError(f"picks has shape {tuple(picks.shape)}, "
-                             f"expected ({num_iters},)")
-        lo, hi = (int(v) for v in torch.aminmax(picks))
-        top = num_directions(op, action, block)
-        if lo < 0 or hi >= top:
-            raise IndexError(f"pick ids span [{lo}, {hi}], allowed "
-                             f"[0, {top})")
+    picks = direction_stream(op, action, num_iters, generator=generator,
+                             picks=picks, block=block)
     rn = op.row_norms_sq() if action == "rk" else None
     norm = "A" if action == "gs" else "euclid"
     x = x0
     errs, resids = [], []
     for c in range(num_iters // rec):
-        ps = picks[c * rec:(c + 1) * rec]
-        if block > 1:
-            x = op.block_gs_sweep(b, x, ps, block=block, beta=beta)
-        elif action == "gs":
-            x = op.gs_sweep(b, x, ps, beta=beta)
-        else:
-            x = op.rk_sweep(b, rn, x, ps, beta=beta)
+        x = sweep(op, b, x, picks[c * rec:(c + 1) * rec], action=action,
+                  beta=beta, block=block, rn=rn)
         err, resid = record_metrics(op, b, x, x_star, norm=norm)
         errs.append(err)
         resids.append(resid)
     iters = (1 + torch.arange(num_iters // rec, device=x.device)) * rec
     return SolveResult(x=x, err_sq=torch.stack(errs),
                        resid=torch.stack(resids), iters=iters)
+
+
+# ---------------------------------------------------------------------------
+# Batched-RHS chunked entry (the serving layer's engine surface)
+# ---------------------------------------------------------------------------
+
+class BatchedSolveResult(NamedTuple):
+    x: torch.Tensor          # (n, k) iterate after the last executed chunk
+    resid: torch.Tensor      # (k,) ||b - A x||_2 at exit, per RHS column
+    #: (k,) int32 on the host: record chunks each column needed to reach
+    #: ITS tolerance (columns that never reached it report the chunks run)
+    rounds: torch.Tensor
+    converged: torch.Tensor  # (k,) bool on the host: resid <= tol at a record
+    iters_run: int           # iterations actually executed (<= num_iters)
+
+
+def sequential_chunk(op, b, x, picks, *, action: str, beta: float = 1.0,
+                     block: int = 1, rn: torch.Tensor | None = None):
+    """One record chunk of the sequential engine: ``picks.shape[0]`` steps
+    from iterate ``x``; returns ``(x_next, resid)`` with ``resid`` the
+    per-column ``||b - A x_next||_2``.
+
+    The chunk is the step ``solve_sequential`` takes per record: one
+    ``op.gs_sweep`` / ``op.rk_sweep`` (``op.block_gs_sweep`` for dense
+    block GS, ``block > 1``), then the residual half of ``record_metrics``
+    (``op.matvec`` and ``ops.colsum``).  On a CSR operator on the card
+    that is three launches: the sweep, the CSR matvec and ``colsum``.  So
+    chaining chunks over consecutive slices of one stream gives bitwise the
+    final ``x`` of ``solve_sequential`` on that stream.  ``rn`` is the
+    Kaczmarz divisor (``op.row_norms_sq()`` when None); a caller running
+    many chunks computes it once.  The reference's ``fused=`` is gone: the
+    port has one engine, whose chunk is always one sweep call.
+    """
+    if action == "rk" and rn is None:
+        rn = op.row_norms_sq()
+    x = sweep(op, b, x, picks, action=action, beta=beta, block=block, rn=rn)
+    r = b - op.matvec(x)
+    return x, torch.sqrt(ops.colsum(r * r))
+
+
+def solve_batched(
+    op,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    action: str,
+    num_iters: int,
+    tol,
+    generator: torch.Generator | None = None,
+    picks: torch.Tensor | None = None,
+    record_every: int = 0,
+    beta: float = 1.0,
+    block: int = 1,
+    chunk_fn=None,
+    on_record=None,
+) -> BatchedSolveResult:
+    """Sequential solve over the multi-RHS axis with per-column tolerances
+    and per-column round counts.
+
+    ``tol`` is an absolute residual target: a scalar or a ``(k,)`` array,
+    one entry per RHS column (the serving layer batches independent
+    tenants' requests onto the columns, each with its own tolerance).  The
+    solve runs record chunk by record chunk (``record_every`` iterations
+    each, checked by ``resolve_record_every``) and exits early once every
+    column has met its tolerance; a column's ``rounds`` entry is the
+    number of chunks it needed.  Columns are independent under both
+    actions and every kernel of a chunk gives a column the same bits
+    whatever the column count, so each column's trajectory is bitwise the
+    one it would have had in any other batch on the same stream.
+
+    The stream is ``picks`` when given, else drawn from ``generator`` (a
+    ``torch.Generator``: a different stream from the reference's
+    ``jax.random`` key), once per solve, as contiguous int32.  The only
+    host read per chunk is the residual, for the tolerance test.
+
+    ``on_record(chunk_idx, x, resid, converged) -> bool`` is called at
+    every record point (``converged`` a host bool tensor); returning False
+    stops the solve after that chunk.  ``chunk_fn(op, b, x, picks, rn=)``
+    overrides the chunk (the serving layer passes its cached executor);
+    the default is ``sequential_chunk`` with this call's statics.
+    """
+    if num_iters <= 0:
+        raise ValueError(f"num_iters must be > 0 (got {num_iters})")
+    rec = resolve_record_every(num_iters, record_every)
+    chunks = num_iters // rec
+    picks = direction_stream(op, action, num_iters, generator=generator,
+                             picks=picks, block=block)
+    k = b.shape[1]
+    if x0 is None:
+        n_x = op.shape[0] if action == "gs" else op.shape[1]
+        x0 = torch.zeros((n_x, k), dtype=b.dtype, device=b.device)
+    tol = torch.as_tensor(tol, dtype=torch.float32).cpu().broadcast_to((k,))
+    rn = op.row_norms_sq() if action == "rk" else None
+    if chunk_fn is None:
+        chunk_fn = functools.partial(sequential_chunk, action=action,
+                                     beta=beta, block=block)
+    x, resid = x0, None
+    rounds = torch.zeros((k,), dtype=torch.int32)
+    conv = torch.zeros((k,), dtype=torch.bool)
+    ran = 0
+    for c in range(chunks):
+        x, resid = chunk_fn(op, b, x, picks[c * rec:(c + 1) * rec], rn=rn)
+        ran = c + 1
+        newly = ~conv & (resid.cpu() <= tol)
+        rounds[newly] = ran
+        conv |= newly
+        go = on_record is None or bool(on_record(c, x, resid, conv.clone()))
+        if bool(conv.all()) or not go:
+            break
+    rounds = torch.where(conv, rounds, ran).to(torch.int32)
+    return BatchedSolveResult(x=x, resid=resid, rounds=rounds, converged=conv,
+                              iters_run=ran * rec)
 
 
 def solve(

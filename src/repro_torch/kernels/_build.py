@@ -6,7 +6,9 @@ stream), loaded with ``ctypes``.  No PyTorch header is compiled, so a build
 takes seconds.  Libraries go to ``build/repro_torch/`` at the root of the
 checkout (git-ignored) under a name that carries a hash of the sources and
 flags, so an edited source is never served by a stale binary.  All sources
-build in parallel, one ``nvcc`` each.
+build in parallel, one ``nvcc`` each.  One lock covers the build and the
+loaders, so threads that reach a kernel first at the same time (a
+service's thread and its caller) build and load each library once.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -36,6 +39,8 @@ VALUE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, object] = {}
+# Reentrant: library() builds through build_all() under it.
+_lock = threading.RLock()
 
 
 def nvcc() -> str:
@@ -67,6 +72,11 @@ def build_all(*, verbose: bool = False) -> dict[str, Path]:
     of each kernel) and prints the compiler's output and the build time.
     Raises ``RuntimeError`` with the compiler's output if a build fails.
     """
+    with _lock:
+        return _build_all(verbose)
+
+
+def _build_all(verbose: bool) -> dict[str, Path]:
     extra = ("-Xptxas", "-v") if verbose else ()   # output only, same binary
     targets = {name: _target(name) for name in SOURCES}
     todo = {name: t for name, t in targets.items() if not t.exists()}
@@ -105,9 +115,13 @@ def build_all(*, verbose: bool = False) -> dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build_all()[name]))
-    return _loaded[name]
+    lib = _loaded.get(name)
+    if lib is None:
+        with _lock:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(build_all()[name]))
+            lib = _loaded[name]
+    return lib
 
 
 def entry(source: str, name: str, argtypes):

@@ -1,1 +1,2 @@
-"""Process launch for the port's distributed engine (``mesh``)."""
+"""Launchers of the port: process launch for the distributed engine
+(``mesh``) and the solver service's CLI (``serve``)."""
