@@ -199,6 +199,8 @@ SERVE_MAX_BATCH, SERVE_WINDOW_S, SERVE_TIMEOUT_S = 32, 0.002, 120.0
 SERVE_CHAIN = 4             # chained chunks held against solve_sequential
 SERVE_LOAD_REQUESTS, SERVE_LOAD_HZ, SERVE_LOAD_WIDTHS = 32, 200.0, (1, 2, 4)
 SERVE_CLI_N, SERVE_CLI_REQUESTS = 4096, 16
+# the launcher's cap and record: 32 sweeps of its n, a record a sweep
+SERVE_CLI_ITERS, SERVE_CLI_REC = 32 * SERVE_CLI_N, SERVE_CLI_N
 SERVE_TIME_REPS = 20
 
 
@@ -717,8 +719,8 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
 
     from repro_torch.core.engine import (draw_picks, sequential_chunk,
                                          solve_batched, solve_sequential)
-    from repro_torch.serve import (RHS_BUCKETS, ExecutorCache, SolverService,
-                                   bucket_rhs, open_loop_load)
+    from repro_torch.serve import (RHS_BUCKETS, SolverService, bucket_rhs,
+                                   open_loop_load)
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 41)
@@ -729,8 +731,7 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
     def service(max_batch=SERVE_MAX_BATCH, warm=RHS_BUCKETS, rk=True):
         svc = SolverService(num_iters=SERVE_ITERS, record_every=SERVE_REC,
                             max_batch=max_batch,
-                            batch_window_s=SERVE_WINDOW_S,
-                            cache=ExecutorCache())
+                            batch_window_s=SERVE_WINDOW_S)
         svc.register("gs", spd.A, action="gs", format="csr",
                      seed=SERVE_SEED, warmup_buckets=warm)
         if rk:
@@ -782,23 +783,23 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
             results = [t.result(timeout=SERVE_TIMEOUT_S) for t in tickets]
         return results, tickets, s.stats.chunk_launches - before
 
-    # (a) three tenants queued before start share one batch and one miss;
-    # a later batch in the same bucket (width 6, bucket 8) is a hit
+    # (a) three tenants queued before start share one batch; a later
+    # request of width 6 (bucket 8) is a batch of its own
     fresh = service(warm=(), rk=False)
     blocks = [gauss(SPD_N, w) for w in (1, 2, 3)]
 
     def tenants():
         rs, _, c = served(fresh, *(("gs", b, dict(rtol=SERVE_RTOL))
                                    for b in blocks))
-        first = (rs, fresh.stats.batches, fresh.executors.stats())
+        first = (rs, fresh.stats.batches, list(fresh.stats.batch_widths))
         (r2,), _, c2 = served(fresh, ("gs", gauss(SPD_N, 6),
                                       dict(rtol=SERVE_RTOL)))
-        return (first, r2, fresh.executors.stats()), {"gs": c + c2}
-    (rs, nb, cache), r2, cache2 = step(
+        return (first, r2, fresh.stats.batch_widths), {"gs": c + c2}
+    (rs, nb, widths), r2, widths2 = step(
         "(a) tenants of widths 1, 2, 3, then a width-6 batch", tenants)
-    check(nb == 1 and cache == {"hits": 0, "misses": 1, "entries": 1},
+    check(nb == 1 and widths == [6],
           f"(a) three tenants queued before start ran as one batch "
-          f"(batches {nb}, cache {cache})")
+          f"(batches {nb}, widths {widths})")
     check(all(bool(r.converged.all()) and r.x.shape == b.shape
               and r.x.device.type == "cpu" and bool(
                   (r.resid.numpy() <= SERVE_RTOL
@@ -807,9 +808,9 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
           "(a) each tenant got its own columns on the host, converged to "
           f"rtol {SERVE_RTOL:g} (rounds "
           + ", ".join(str(r.rounds.tolist()) for r in rs) + ")")
-    check(bool(r2.converged.all())
-          and cache2 == {"hits": 1, "misses": 1, "entries": 1},
-          f"(a) a later batch in the same bucket is a hit ({cache2})")
+    check(bool(r2.converged.all()) and widths2 == [6, 6],
+          f"(a) a later width-6 request ran as a second batch, converged "
+          f"(widths {widths2})")
     del fresh
 
     # (b) and (e): widths 3, 5 and 51 bitwise their unpadded solo solves;
@@ -934,25 +935,23 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
     # An open-loop load, batched then serial: the same arrivals, RHS and
     # stream, so each request must take the same rounds in both.
     def load(s):
-        c0, b0, cache0 = (s.stats.chunk_launches, s.stats.batches,
-                          s.executors.stats())
+        c0, b0 = s.stats.chunk_launches, s.stats.batches
         with s:
             rep = open_loop_load(s, "gs", requests=SERVE_LOAD_REQUESTS,
                                  rate_hz=SERVE_LOAD_HZ,
                                  rhs_widths=SERVE_LOAD_WIDTHS,
                                  rtol=SERVE_RTOL, seed=SEED + 44)
-        cache1 = s.executors.stats()
         c, nb = s.stats.chunk_launches - c0, s.stats.batches - b0
         each = list(zip(s.stats.batch_widths[-nb:],
+                        s.stats.batch_chunks[-nb:],
                         s.stats.batch_seconds[-nb:]))
-        return (rep, nb, c, {f: cache1[f] - cache0[f] for f in cache1},
-                each), {"gs": c}
+        return (rep, nb, c, each), {"gs": c}
 
     loads = {}
     for mode, s in (("batched", svc), ("serial", None)):
         if s is None:
             s = service(max_batch=1, warm=SERVE_LOAD_WIDTHS, rk=False)
-        rep, nb, c, cache, each = loads[mode] = step(
+        rep, nb, c, each = loads[mode] = step(
             f"open-loop load, {mode}", functools.partial(load, s))
         window = nb * SERVE_WINDOW_S / rep.makespan_s
         print(f"  load {mode}: {SERVE_LOAD_REQUESTS} requests at "
@@ -960,9 +959,10 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
               f"{SERVE_RTOL:g}: qps {rep.qps:.3f}, p50 {rep.p50_ms:.3f} ms, "
               f"p99 {rep.p99_ms:.3f} ms, mean {rep.mean_ms:.3f} ms, makespan "
               f"{rep.makespan_s:.4f} s, batches {nb}, chunk_launches {c}, "
-              f"cache during the load {cache}, admission window "
-              f"{100 * window:.2f}% of the makespan; batches (width, s): "
-              + ", ".join(f"({w}, {t:.4f})" for w, t in each), flush=True)
+              f"admission window {100 * window:.2f}% of the makespan; "
+              "batches (width, chunks, s, ms a chunk): "
+              + ", ".join(f"({w}, {n}, {t:.4f}, {1e3 * t / n:.4f})"
+                          for w, n, t in each), flush=True)
         check(rep.converged == SERVE_LOAD_REQUESTS,
               f"load {mode}: every request converged ({rep.converged})")
     check(loads["batched"][1] < SERVE_LOAD_REQUESTS,
@@ -985,7 +985,8 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
     # launch.serve in a child process
     t0 = time.perf_counter()
     argv = ["--n", str(SERVE_CLI_N), "--row-nnz", str(SPD_ROW_NNZ),
-            "--requests", str(SERVE_CLI_REQUESTS)]
+            "--requests", str(SERVE_CLI_REQUESTS), "--max-iters",
+            str(SERVE_CLI_ITERS), "--record-every", str(SERVE_CLI_REC)]
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
@@ -999,9 +1000,13 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
     for line in text.splitlines()[-8:]:
         print(f"    [launch.serve] {line}", flush=True)
     said = [ln for ln in text.splitlines() if ln.startswith("[serve]")]
-    check(proc.returncode == 0 and len(said) == 2,
+    fields = dict(f.split("=", 1) for f in said[0].split()[1:] if "=" in f
+                  ) if said else {}
+    check(proc.returncode == 0 and len(said) == 2
+          and fields.get("converged") == str(SERVE_CLI_REQUESTS),
           f"python -m repro_torch.launch.serve {' '.join(argv)} exited 0 "
-          f"with both [serve] lines ({time.perf_counter() - t0:.2f} s)")
+          f"with both [serve] lines, converged={fields.get('converged')} of "
+          f"{SERVE_CLI_REQUESTS} ({time.perf_counter() - t0:.2f} s)")
 
     # One chunk's times, printed and not checked: from Python, replayed
     # from one CUDA graph, and on the host's clock with the service's

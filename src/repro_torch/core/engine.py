@@ -38,7 +38,6 @@ item 3).
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
@@ -400,7 +399,6 @@ def solve_batched(
     record_every: int = 0,
     beta: float = 1.0,
     block: int = 1,
-    chunk_fn=None,
     on_record=None,
 ) -> BatchedSolveResult:
     """Sequential solve over the multi-RHS axis with per-column tolerances
@@ -424,9 +422,9 @@ def solve_batched(
 
     ``on_record(chunk_idx, x, resid, converged) -> bool`` is called at
     every record point (``converged`` a host bool tensor); returning False
-    stops the solve after that chunk.  ``chunk_fn(op, b, x, picks, rn=)``
-    overrides the chunk (the serving layer passes its cached executor);
-    the default is ``sequential_chunk`` with this call's statics.
+    stops the solve after that chunk.  Each chunk is ``sequential_chunk``;
+    the reference's ``chunk_fn=`` (a cached compiled chunk) and ``fused=``
+    are gone: the port compiles nothing per call and has one engine.
     """
     if num_iters <= 0:
         raise ValueError(f"num_iters must be > 0 (got {num_iters})")
@@ -440,15 +438,14 @@ def solve_batched(
         x0 = torch.zeros((n_x, k), dtype=b.dtype, device=b.device)
     tol = torch.as_tensor(tol, dtype=torch.float32).cpu().broadcast_to((k,))
     rn = op.row_norms_sq() if action == "rk" else None
-    if chunk_fn is None:
-        chunk_fn = functools.partial(sequential_chunk, action=action,
-                                     beta=beta, block=block)
     x, resid = x0, None
     rounds = torch.zeros((k,), dtype=torch.int32)
     conv = torch.zeros((k,), dtype=torch.bool)
     ran = 0
     for c in range(chunks):
-        x, resid = chunk_fn(op, b, x, picks[c * rec:(c + 1) * rec], rn=rn)
+        x, resid = sequential_chunk(op, b, x, picks[c * rec:(c + 1) * rec],
+                                    action=action, beta=beta, block=block,
+                                    rn=rn)
         ran = c + 1
         newly = ~conv & (resid.cpu() <= tol)
         rounds[newly] = ran

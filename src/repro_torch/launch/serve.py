@@ -6,7 +6,7 @@ builds a reference-scenario problem on ``--device`` (the card by default;
 ``SolverService`` and drives the service with a synthetic open-loop
 request stream of mixed RHS widths, printing queries/sec, p50/p99
 latency, convergence and the continuous-batching counters (batches,
-chunk launches, executor-cache hits).  ``--serial`` runs the same stream
+chunk launches, expired deadlines).  ``--serial`` runs the same stream
 one request per batch (``max_batch=1``), the baseline of the batched
 numbers.  The reference's ``--fused`` is gone: the port has one engine.
 """
@@ -85,10 +85,8 @@ def main(argv=None):
           f"makespan={report.makespan_s:.2f}s")
     print(f"[serve] batches={svc.stats.batches} "
           f"chunk_launches={svc.stats.chunk_launches} "
-          f"deadline_expired={svc.stats.deadline_expired} "
-          f"cache={svc.executors.stats()}")
-    return {"report": report._asdict(), "stats": svc.stats,
-            "cache": svc.executors.stats()}
+          f"deadline_expired={svc.stats.deadline_expired}")
+    return {"report": report._asdict(), "stats": svc.stats}
 
 
 if __name__ == "__main__":

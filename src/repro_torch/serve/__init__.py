@@ -4,14 +4,12 @@
 ``SolverService`` wraps the engine's chunked batched entry
 (``solve_batched``) behind a thread-safe request queue: concurrent
 tenants' RHS columns are batched onto the engine's multi-RHS axis, padded
-to shape buckets so the ``ExecutorCache`` reuses one chunk executor per
-bucket, solved with per-column tolerances on the operator's device, and
-un-padded on exit, with per-request deadlines, early exit at record points
-and streamed partial iterates on the host.
+to shape buckets, solved with per-column tolerances on the operator's
+device, and un-padded on exit, with per-request deadlines, early exit at
+record points and streamed partial iterates on the host.
 """
 from repro_torch.serve.bucketing import (RHS_BUCKETS, bucket_rhs, pad_columns,
                                          unpad_columns)
-from repro_torch.serve.executor import ExecKey, ExecutorCache
 from repro_torch.serve.loadgen import LoadReport, open_loop_load, percentile
 from repro_torch.serve.queue import (Partial, Request, RequestQueue,
                                      RequestResult, Ticket)
@@ -19,8 +17,6 @@ from repro_torch.serve.service import (RegisteredProblem, ServiceStats,
                                        SolverService)
 
 __all__ = [
-    "ExecKey",
-    "ExecutorCache",
     "LoadReport",
     "Partial",
     "RHS_BUCKETS",

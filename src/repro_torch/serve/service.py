@@ -12,12 +12,14 @@ matvec and ``colsum``) instead of N.
 
 Per batch: drain the queue (admission window ``batch_window_s``), group by
 registered problem, concatenate columns on the operator's device, pad to
-the RHS bucket (``serve.bucketing``), fetch the chunk executor from the
-``ExecutorCache`` and drive ``core.engine.solve_batched`` with per-column
-tolerances.  At every record point the service streams partial iterates
-to in-flight tickets, completes tenants whose columns converged (a
-loose-tolerance tenant leaves early while the batch goes on for the
-others) and enforces per-request deadlines (a tenant past its deadline
+the RHS bucket (``serve.bucketing``) and drive
+``core.engine.solve_batched`` with the problem's action and ``beta`` and
+per-column tolerances.  The reference keeps a cache of compiled chunk
+executors keyed by shape; the port compiles nothing per shape (its kernels
+are built once per process), so it has none.  At every record point the
+service streams partial iterates to in-flight tickets, completes tenants
+whose columns converged (a loose-tolerance tenant leaves early while the
+batch goes on for the others) and enforces per-request deadlines (a tenant past its deadline
 gets its partial iterate, marked unconverged).  Joins happen at batch
 boundaries and leaves at record points.
 
@@ -28,7 +30,6 @@ that batch's open tickets with it: ``Ticket.result()`` raises it.
 """
 from __future__ import annotations
 
-import functools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -40,7 +41,6 @@ from repro_torch.core.engine import (draw_picks, resolve_record_every,
                                      sequential_chunk, solve_batched)
 from repro_torch.core.operators import as_operator
 from repro_torch.serve.bucketing import bucket_rhs, pad_columns, unpad_columns
-from repro_torch.serve.executor import ExecKey, ExecutorCache
 from repro_torch.serve.queue import (Partial, Request, RequestQueue,
                                      RequestResult, Ticket)
 
@@ -79,6 +79,8 @@ class ServiceStats:
     #: per-batch wall seconds on the host's clock, from the batch's
     #: concatenation to its last ticket (the admission window excluded)
     batch_seconds: list = field(default_factory=list)
+    #: per-batch record chunks run
+    batch_chunks: list = field(default_factory=list)
 
 
 class SolverService:
@@ -92,14 +94,12 @@ class SolverService:
     """
 
     def __init__(self, *, num_iters: int = 4096, record_every: int = 64,
-                 max_batch: int = 32, batch_window_s: float = 0.002,
-                 cache: ExecutorCache | None = None):
+                 max_batch: int = 32, batch_window_s: float = 0.002):
         resolve_record_every(num_iters, record_every)  # fail fast, once
         self.num_iters = num_iters
         self.record_every = record_every
         self.max_batch = max_batch
         self.batch_window_s = batch_window_s
-        self.executors = cache if cache is not None else ExecutorCache()
         self.stats = ServiceStats()
         self._queue = RequestQueue()
         self._problems: dict[str, RegisteredProblem] = {}
@@ -138,11 +138,12 @@ class SolverService:
         n_x = op.shape[0] if action == "gs" else op.shape[1]
         for kb in warmup_buckets:
             kb = bucket_rhs(kb)
-            chunk_fn = self._executor(reg, kb)
             picks = torch.zeros((record_every,), dtype=torch.int32,
                                 device=op.device)
-            chunk_fn(op, torch.zeros((op.shape[0], kb), device=op.device),
-                     torch.zeros((n_x, kb), device=op.device), picks, rn=rn)
+            sequential_chunk(
+                op, torch.zeros((op.shape[0], kb), device=op.device),
+                torch.zeros((n_x, kb), device=op.device), picks,
+                action=action, beta=beta, rn=rn)
         if warmup_buckets:
             draw_picks(op, action, num_iters, generator=reg.generator())
             if op.device.type == "cuda":
@@ -220,14 +221,6 @@ class SolverService:
 
     # -- batch execution ----------------------------------------------------
 
-    def _executor(self, reg: RegisteredProblem, k_bucket: int):
-        exec_key = ExecKey(
-            format=type(reg.op).__name__, action=reg.action,
-            shape=tuple(reg.op.shape), k_bucket=k_bucket,
-            storage_dtype=reg.storage_dtype, record_every=reg.record_every)
-        return self.executors.get(exec_key, lambda: functools.partial(
-            sequential_chunk, action=reg.action, beta=reg.beta, block=1))
-
     def _execute(self, reg: RegisteredProblem, items: list) -> None:
         """One continuous batch: concat -> pad -> chunked solve -> unpad.
         An error completes every ticket still open with it."""
@@ -259,7 +252,6 @@ class SolverService:
         # (zero column, zero iterate), so they never gate the early exit.
         tol_full = np.full((kb,), np.inf, np.float32)
         tol_full[:k] = np.concatenate(tols)
-        chunk_fn = self._executor(reg, kb)
 
         first_chunk = torch.zeros((kb,), dtype=torch.int32)
 
@@ -306,7 +298,7 @@ class SolverService:
         res = solve_batched(
             reg.op, B, action=reg.action, generator=reg.generator(),
             num_iters=reg.num_iters, record_every=rec, tol=tol_full,
-            beta=reg.beta, chunk_fn=chunk_fn, on_record=on_record)
+            beta=reg.beta, on_record=on_record)
 
         # Anyone still open hit the iteration cap: complete with finals.
         if not all(done):
@@ -321,3 +313,4 @@ class SolverService:
         self.stats.requests += len(items)
         self.stats.batches += 1
         self.stats.batch_widths.append(k)
+        self.stats.batch_chunks.append(res.iters_run // rec)

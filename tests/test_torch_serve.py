@@ -1,12 +1,20 @@
 """repro_torch's serving layer (``serve/``, ``launch.serve``) and the lazy
 kernel build under threads.
 
-The reference's service tests (tests/test_serve.py) rewritten for the port:
-the port's service held against the port's own ``solve_batched`` on the
-same ``torch.Generator`` seed, bitwise (the port's stream is not the
-reference's ``jax.random`` one, so the service is not compared with the
-reference's).  The host-side pieces (buckets, padding, the open-loop
-arrival plan, the percentile) are held bitwise against the reference's.
+The port's service is held against the reference's ``SolverService`` on
+the same matrix, RHS blocks and tolerances, with the reference's
+``jax.random`` stream handed to the port's engine as ``picks=`` (the
+port's own stream is a ``torch.Generator``'s, a different one): the
+tolerances bitwise, x within rtol 1e-5 (relative norm) and each resid
+within 1e-5 * ||b|| of its column, and the batches, rounds, convergence,
+iterations and partials' iterations equal.  (A residual of 1e-4 * ||b||
+is the difference of two f32 vectors of norm ||b||: its own relative
+error is about 1e-7 * ||b|| / resid, so a relative bound on it would test
+rounding.)  The reference's service tests (tests/test_serve.py) are also
+rewritten for the port: the port's service against the port's own ``solve_batched`` on the same
+``torch.Generator`` seed, bitwise.  The host-side pieces (buckets,
+padding, the open-loop arrival plan, the percentile) are held bitwise
+against the reference's.
 """
 import os
 import subprocess
@@ -20,19 +28,23 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+import repro_torch.serve.service as port_service  # noqa: E402
+from repro.core.engine import draw_picks as ref_draw_picks  # noqa: E402
+from repro.serve import SolverService as RefSolverService  # noqa: E402
 from repro.serve import bucket_rhs as ref_bucket_rhs  # noqa: E402
 from repro.serve import loadgen as ref_loadgen  # noqa: E402
 from repro.serve import pad_columns as ref_pad_columns  # noqa: E402
 from repro_torch.core import random_sparse_spd  # noqa: E402
 from repro_torch.core.engine import solve_batched  # noqa: E402
 from repro_torch.core.operators import as_operator  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.serve import (ExecutorCache, SolverService,  # noqa: E402
-                               bucket_rhs, loadgen, open_loop_load,
-                               pad_columns, percentile, unpad_columns)
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.serve import (SolverService, bucket_rhs,  # noqa: E402
+                               loadgen, open_loop_load, pad_columns,
+                               percentile, unpad_columns)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -45,7 +57,7 @@ def prob():
 def _service(prob, **kw):
     kw.setdefault("num_iters", 2048)
     kw.setdefault("record_every", 64)
-    svc = SolverService(cache=ExecutorCache(), **kw)
+    svc = SolverService(**kw)
     svc.register("spd", prob.A, action="gs", format="csr", seed=0)
     return svc
 
@@ -130,12 +142,86 @@ def test_open_loop_arrival_plan_matches_reference(monkeypatch):
         assert getattr(r1, f) == getattr(r2, f), f
 
 
+# -- the service against the reference's --------------------------------------
+
+SERVE_ITERS, SERVE_REC, SERVE_SEED = 1024, 64, 7
+# Each scenario is one batch: its requests are queued before the loop
+# starts.  "tenants": widths 1, 2 and 3 (bucket 8).  "exits" (bucket 4): a
+# loose and a tight tenant, one past its deadline at once, and one that
+# never converges and runs to the iteration cap.
+SCENARIOS = {
+    "tenants": [(1, {}), (2, {}), (3, {})],
+    "exits": [(1, dict(rtol=0.3)), (1, dict(rtol=1e-4)),
+              (1, dict(rtol=1e-12, deadline_s=0.0)), (1, dict(rtol=1e-12))],
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_service_matches_reference(prob, scenario, monkeypatch):
+    """The port's service against the reference's on the same matrix, RHS
+    blocks and rtol, the port's engine given the reference's stream."""
+    ref = RefSolverService(num_iters=SERVE_ITERS, record_every=SERVE_REC)
+    ref.register("spd", jnp.asarray(prob.A.numpy()), action="gs",
+                 format="csr", seed=SERVE_SEED, rows_per_panel=8)
+    port = SolverService(num_iters=SERVE_ITERS, record_every=SERVE_REC)
+    port.register("spd", prob.A, action="gs", format="csr", seed=SERVE_SEED,
+                  rows_per_panel=8)
+    picks = torch.from_numpy(np.array(ref_draw_picks(
+        ref._problems["spd"].op, "gs", jax.random.key(SERVE_SEED),
+        SERVE_ITERS)))
+    real = port_service.solve_batched
+
+    def with_ref_stream(*args, generator, **kw):
+        return real(*args, picks=picks, **kw)
+    monkeypatch.setattr(port_service, "solve_batched", with_ref_stream)
+
+    rng = np.random.default_rng(17)
+    reqs = [(rng.standard_normal((64, w)).astype(np.float32), kw)
+            for w, kw in SCENARIOS[scenario]]
+    runs = {}
+    for tag, svc in (("ref", ref), ("port", port)):
+        tickets = [svc.submit("spd", b, **kw) for b, kw in reqs]
+        with svc:
+            results = [t.result(timeout=120) for t in tickets]
+        runs[tag] = (svc.stats, tickets, results)
+    (rs, rt, rr), (ps, pt, pr) = runs["ref"], runs["port"]
+
+    for f in ("requests", "batches", "chunk_launches", "deadline_expired",
+              "batch_widths"):
+        assert getattr(ps, f) == getattr(rs, f), f
+    assert ps.batches == 1
+    for (b, _), want_t, got_t, want, got in zip(reqs, rt, pt, rr, pr):
+        near = 1e-5 * np.linalg.norm(b, axis=0)
+        assert got_t.request.tol.dtype == want_t.request.tol.dtype
+        np.testing.assert_array_equal(got_t.request.tol,
+                                      want_t.request.tol)
+        assert (np.linalg.norm(got.x.numpy() - want.x)
+                <= 1e-5 * np.linalg.norm(want.x))
+        assert (np.abs(got.resid.numpy() - want.resid) <= near).all()
+        np.testing.assert_array_equal(got.rounds.numpy(), want.rounds)
+        np.testing.assert_array_equal(got.converged.numpy(), want.converged)
+        assert got.iters_run == want.iters_run
+        assert [p.iters for p in got_t.partials] == \
+            [p.iters for p in want_t.partials]
+        for gp, wp in zip(got_t.partials, want_t.partials):
+            assert (np.abs(gp.resid.numpy() - wp.resid) <= near).all()
+    if scenario == "exits":     # each exit really happened
+        loose, tight, late, cap = rr
+        assert loose.converged.all() and loose.rounds[0] < tight.rounds[0]
+        assert not late.converged.any() and late.iters_run == SERVE_REC
+        assert not cap.converged.any() and cap.iters_run == SERVE_ITERS
+        assert rs.deadline_expired == 1
+    else:
+        assert all(r.converged.all() for r in rr)
+        assert rs.batch_widths == [6]
+
+
 # -- the continuous-batching service (the reference's seven behaviours) -------
 
 def test_concurrent_tenants_share_one_batched_launch(prob):
-    """Three tenants submitting concurrently land in one batch: one entry
-    in the executor cache (miss=1), one batched solve, and each tenant
-    gets back exactly its own columns, on the host."""
+    """Three tenants submitting concurrently land in one batch: one
+    batched solve, and each tenant gets back exactly its own columns, on
+    the host."""
     svc = _service(prob)
     rng = np.random.default_rng(3)
     widths = (1, 2, 3)
@@ -160,18 +246,17 @@ def test_concurrent_tenants_share_one_batched_launch(prob):
 
     assert svc.stats.batches == 1
     assert svc.stats.batch_widths == [sum(widths)]    # 6 -> bucket 8
-    assert svc.executors.stats() == {"hits": 0, "misses": 1, "entries": 1}
     for w, blk, r in zip(widths, blocks, results):
         assert r.x.shape == (64, w) and r.x.device.type == "cpu"
         assert bool(r.converged.all())
         assert (r.resid.numpy()
                 <= 1e-3 * np.linalg.norm(blk, axis=0)).all()
 
-    # a later same-bucket batch reuses the executor: hit, no new entry
+    # a later batch in the same bucket is a batch of its own
     with svc:
         t2 = svc.submit("spd", rng.standard_normal((64, 6)), rtol=1e-3)
         assert bool(t2.result(timeout=120).converged.all())
-    assert svc.executors.stats() == {"hits": 1, "misses": 1, "entries": 1}
+    assert svc.stats.batches == 2 and svc.stats.batch_widths == [6, 6]
 
 
 @pytest.mark.parametrize("k", [3, 5])
@@ -318,15 +403,48 @@ def test_rk_request_bitwise_its_solo_solve():
     assert torch.equal(served.rounds, solo.rounds)
 
 
-def test_warmup_buckets_fill_the_cache(prob):
-    svc = SolverService(num_iters=256, record_every=64, cache=ExecutorCache())
+def test_warmup_buckets_run_one_chunk_each(prob, monkeypatch):
+    """``warmup_buckets`` runs one chunk per RHS bucket on the calling
+    thread (widths 1, 3 and 64 -> buckets 1, 4 and 64) and serves
+    nothing."""
+    widths = []
+    real = ops.sweep_rows_gs
+
+    def spy(vals, cols, b, x, picks, **kw):
+        widths.append(x.shape[1])
+        return real(vals, cols, b, x, picks, **kw)
+    monkeypatch.setattr(ops, "sweep_rows_gs", spy)
+    svc = SolverService(num_iters=256, record_every=64)
     svc.register("spd", prob.A, action="gs", format="csr",
                  warmup_buckets=(1, 3, 64))
-    assert svc.executors.stats() == {"hits": 0, "misses": 3, "entries": 3}
+    assert widths == [1, 4, 64]
+    assert svc.stats.batches == 0 and svc.stats.chunk_launches == 0
     with svc:
         svc.submit("spd", np.ones((64, 4), np.float32),
                    rtol=0.5).result(timeout=120)
-    assert svc.executors.stats() == {"hits": 1, "misses": 3, "entries": 3}
+    assert svc.stats.batches == 1
+    assert widths[3:] == [4] * svc.stats.chunk_launches
+
+
+def test_problems_keep_their_own_beta(prob):
+    """Two problems of one shape, format and action but different
+    relaxation ``beta`` each run with their own: each served request is
+    bitwise its solo ``solve_batched`` at that beta, and the two differ."""
+    b = np.random.default_rng(13).standard_normal((64, 2)).astype(np.float32)
+    tol = (1e-3 * np.linalg.norm(b, axis=0)).astype(np.float32)
+    svc = SolverService(num_iters=2048, record_every=64)
+    for beta in (1.0, 0.5):
+        svc.register(f"beta{beta}", prob.A, action="gs", format="csr",
+                     seed=0, beta=beta, warmup_buckets=(2,))
+    with svc:
+        served = {beta: svc.submit(f"beta{beta}", b, tol=tol).result(
+            timeout=120) for beta in (1.0, 0.5)}
+    for beta, got in served.items():
+        solo = _solo(prob, b, tol, beta=beta)
+        assert torch.equal(got.x, solo.x), beta
+        assert torch.equal(got.resid, solo.resid), beta
+        assert got.rounds.tolist() == solo.rounds.tolist(), beta
+    assert not torch.equal(served[1.0].x, served[0.5].x)
 
 
 def test_batch_error_reaches_the_tickets(prob, monkeypatch):
@@ -364,7 +482,7 @@ def test_launch_serve_on_the_cpu():
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[serve]")]
     assert len(lines) == 2
     assert "mode=batched requests=8 converged=8" in lines[0]
-    assert "batches=" in lines[1] and "cache=" in lines[1]
+    assert "batches=" in lines[1] and "deadline_expired=0" in lines[1]
 
 
 def test_launch_serve_rk_serial_on_the_cpu():
