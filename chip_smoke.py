@@ -202,6 +202,35 @@ SERVE_CLI_N, SERVE_CLI_REQUESTS = 4096, 16
 # the launcher's cap and record: 32 sweeps of its n, a record a sweep
 SERVE_CLI_ITERS, SERVE_CLI_REC = 32 * SERVE_CLI_N, SERVE_CLI_N
 SERVE_TIME_REPS = 20
+# The sequential CLIs, the bounded-delay simulator, the CG baselines and
+# the theory (sequential_cli_phase).  In process at the main path's full
+# width: launch.solve on random_sparse_spd(SPD_N, row_nnz=16) (its default
+# row_nnz), GS_SWEEPS sweeps on CSR; launch.lsq on random_sparse_lsq(LSQ_M,
+# LSQ_N) (noise 0.01, its default), CLI_LSQ_SWEEPS sweep on CSR, the async
+# pass at tau CLI_TAU (32768 simulator steps on the densified design).
+CLI_LSQ_SWEEPS, CLI_TAU = 1, 32
+CLI_TIMEOUT_S = 300
+# The simulator at fig3_async_penalty's size: random_sparse_spd(SIM_N,
+# row_nnz=16, offdiag=0.95), SIM_SWEEPS sweeps, every tau of SIM_TAUS under
+# the three consistent delay modes (beta 1: 2 rho tau < 1 at every tau) and
+# inconsistent reads (beta_opt_inconsistent).  Consistent runs must cut
+# err_sq SIM_FALL-fold (Thm 4.1), inconsistent ones SIM_INC_FALL-fold (a
+# CPU run of the same size fell 20-fold at tau 64, beta 0.16).  The runs at
+# SIM_CPU_TAU also run on the CPU on the same streams: x within SIM_RTOL
+# (rel, norm) and the last err_sq within SIM_ERR_RTOL (rel; err_sq is a
+# small difference of x and x*, 1e-5 of its start).  The RK simulator:
+# random_lsq(SIM_RK_M, SIM_RK_N), SIM_RK_SWEEPS sweeps at tau SIM_RK_TAU.
+SIM_N, SIM_SWEEPS, SIM_TAUS, SIM_K, SIM_CPU_TAU = 1024, 10, (4, 16, 64), 4, 16
+SIM_FALL, SIM_INC_FALL, SIM_RTOL, SIM_ERR_RTOL = 1e-2, 1e-1, 1e-4, 1e-2
+SIM_RK_M, SIM_RK_N, SIM_RK_K, SIM_RK_SWEEPS, SIM_RK_TAU = 4096, 512, 8, 1, 32
+# Flexible CG on laplacian_spd(FCG_SIDE) (n = 16384, dense 1 GiB), its
+# preconditioner FCG_SWEEPS block-GS sweeps of FCG_BLOCK rows (one
+# block_gs_sweep launch an application), FCG_ITERS iterations against
+# plain CG (the reference's tests/test_cg.py claims).
+FCG_SIDE, FCG_BLOCK, FCG_SWEEPS, FCG_ITERS = 128, 128, 2, 12
+# Lanczos (64 iterations) against eigvalsh at SIM_N; rk_rho of the main
+# LSQ design in f32 against the same function in f64 by row blocks.
+LANCZOS_RTOL, RK_RHO_RTOL = 1e-3, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1053,6 +1082,402 @@ def serving_phase(torch, ops, spd, lsq, launches) -> None:
           flush=True)
 
 
+def cli_numbers(text: str, prefix: str) -> dict:
+    """The ``key=value`` numbers and the ``resid``/``relresid`` and
+    ``(... s)`` wall seconds of the CLI output line that starts with
+    ``prefix`` (after its indent); {} when there is no such line."""
+    import re
+    for line in text.splitlines():
+        if line.strip().startswith(prefix):
+            out = {k: float(v) for k, v in re.findall(
+                r"([A-Za-z_~]+(?:\([a-z_~]+(?:=[0-9]+)?\))?)="
+                r"(-?[0-9.]+(?:e[-+][0-9]+)?|nan|inf)", line)}
+            m = re.search(r"(?:rel)?resid (-?[0-9.]+e[-+][0-9]+|nan|inf)",
+                          line)
+            if m:
+                out["resid"] = float(m.group(1))
+            m = re.search(r"\(([0-9.]+)s", line)
+            if m:
+                out["s"] = float(m.group(1))
+            m = re.search(r"<= (-?[0-9.]+)", line)
+            if m:
+                out["factor"] = float(m.group(1))
+            return out
+    return {}
+
+
+def sequential_cli_phase(torch, ops, lsq, launches) -> None:
+    """The sequential CLIs, the bounded-delay simulator, the CG baselines
+    and the theory on the card: (a) ``launch.solve`` and ``launch.lsq`` in
+    this process at the main path's full width, with their launch counts;
+    (b) both CLIs as ``python -m`` children at their reference defaults;
+    (c) the simulator at fig3_async_penalty's size and the RK simulator,
+    bitwise sequential GS at tau = 0, converging, the card against the CPU
+    on the same streams, no host read in a step; (d) flexible CG with one
+    ``block_gs_sweep`` launch per preconditioner application; (e)
+    ``lanczos_extreme_eigs`` and ``rk_rho`` timed; (f) TF32 still off.
+    Every driven path's launches go into ``launches``."""
+    import contextlib
+    import io
+    import math
+
+    from repro_torch.core import (DenseOp, SPDProblem, async_rgs_solve,
+                                  async_rk_solve, cg_solve, fcg_solve,
+                                  laplacian_spd, make_rgs_preconditioner,
+                                  random_lsq, random_sparse_spd, rgs_solve,
+                                  theory)
+    from repro_torch.core.engine import draw_delays, draw_picks
+    from repro_torch.kernels import ref
+    from repro_torch.launch import lsq as lsq_cli
+    from repro_torch.launch import solve as solve_cli
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    def counted(tag, expect, run):
+        """``run()`` with the counters set to 0 just before it; its launches
+        must be exactly ``expect`` and go into ``launches``."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        check(got == {name: expect.get(name, 0) for name in ops.KERNELS},
+              f"{tag}: launched exactly {expect} ({wall:.3f} s)")
+        for name, n in got.items():
+            launches[name] += n
+        return out, wall
+
+    def in_process(cli, argv):
+        """``cli.main(argv)`` with its printed lines and warnings kept."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = cli.main(list(argv))
+        for line in buf.getvalue().splitlines():
+            print(f"    [{cli.__name__.rsplit('.', 1)[-1]}] {line}",
+                  flush=True)
+        return result, buf.getvalue(), [str(w.message) for w in caught]
+
+    def unit(v):
+        return 0.0 < v <= 1.0
+
+    # (b) started first: the two children run while this process runs
+    # the simulator's CPU reference runs below, and are joined before any
+    # timed work on the card.
+    children = {
+        "launch.solve --format ell": ("repro_torch.launch.solve",
+                                      ["--format", "ell"],
+                                      ("[solve]", "sync RGS", "CG",
+                                       "theory")),
+        "launch.lsq --format dense": ("repro_torch.launch.lsq",
+                                      ["--format", "dense"],
+                                      ("[lsq]", "seq RK", "async RK",
+                                       "CG (A^T A)", "theory"))}
+    t_children = time.perf_counter()
+    procs = {what: subprocess.Popen(
+        [sys.executable, "-m", mod, *argv], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for what, (mod, argv, _) in children.items()}
+    try:
+        # (c) first half: the problems and streams on the host, and the
+        # CPU runs at SIM_CPU_TAU that the card's runs are held to.
+        sim_cpu = random_sparse_spd(SIM_N, row_nnz=16, offdiag=0.95,
+                                    n_rhs=SIM_K, seed=SEED, device="cpu")
+        steps = SIM_SWEEPS * SIM_N
+        sim_picks = torch.randint(0, SIM_N, (steps,),
+                                  generator=torch.Generator().manual_seed(
+                                      SEED + 51))
+        rho = float(theory.rho(sim_cpu.A))
+        rho2 = float(theory.rho2(sim_cpu.A))
+        runs = {}
+        for tau in SIM_TAUS:
+            for mode in ("fixed", "uniform", "cyclic", "inconsistent"):
+                model = "inconsistent" if mode == "inconsistent" else \
+                    "consistent"
+                beta = (theory.beta_opt_inconsistent(rho2, tau)
+                        if model == "inconsistent" else 1.0)
+                delays = draw_delays(
+                    steps, tau, read_model=model, delay_mode=mode,
+                    miss_prob=0.5, generator=torch.Generator().manual_seed(
+                        SEED + 52 + tau))
+                kw = dict(num_iters=steps, tau=tau, picks=sim_picks,
+                          delays=delays, beta=beta, read_model=model,
+                          delay_mode="fixed" if model == "inconsistent"
+                          else mode, record_every=SIM_N)
+                cpu = (async_rgs_solve(sim_cpu.A, sim_cpu.b,
+                                       torch.zeros_like(sim_cpu.b),
+                                       sim_cpu.x_star, **kw)
+                       if tau == SIM_CPU_TAU else None)
+                runs[(tau, mode)] = (kw, cpu)
+        rk_cpu = random_lsq(SIM_RK_M, SIM_RK_N, n_rhs=SIM_RK_K, noise=0.0,
+                            col_scale=0.5, seed=SEED, device="cpu")
+        rk_steps = SIM_RK_SWEEPS * SIM_RK_M
+        rk_picks = draw_picks(DenseOp(rk_cpu.A), "rk", rk_steps,
+                              generator=torch.Generator().manual_seed(
+                                  SEED + 53))
+        rk_beta = theory.beta_opt_rk(float(theory.rk_rho(rk_cpu.A)),
+                                     SIM_RK_TAU)
+        rk_kw = dict(num_iters=rk_steps, tau=SIM_RK_TAU, picks=rk_picks,
+                     delays=draw_delays(rk_steps, SIM_RK_TAU,
+                                        read_model="consistent",
+                                        delay_mode="fixed", miss_prob=0.5,
+                                        generator=None),
+                     beta=rk_beta, record_every=SIM_RK_M)
+        rk_cpu_res = async_rk_solve(rk_cpu.A, rk_cpu.b,
+                                    torch.zeros_like(rk_cpu.x_star),
+                                    rk_cpu.x_star, **rk_kw)
+        outs = {what: proc.communicate(timeout=CLI_TIMEOUT_S)[0]
+                for what, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for what, proc in procs.items():
+        text = outs[what]
+        for line in text.splitlines()[-8:]:
+            print(f"    [{what}] {line}", flush=True)
+        prefixes = children[what][2]
+        said = {pf: cli_numbers(text, pf) for pf in prefixes}
+        finite = all(math.isfinite(v) for d in said.values()
+                     for v in d.values())
+        check(proc.returncode == 0 and all(said.values()) and finite,
+              f"(b) python -m repro_torch.{what} exited 0 with its lines "
+              f"{', '.join(prefixes)}, every number finite")
+    print(f"  (b) both children and the simulator's CPU runs: "
+          f"{time.perf_counter() - t_children:.2f} s", flush=True)
+
+    # (a) launch.solve in process: GS_SWEEPS sweeps (one sweep_rows_gs
+    # launch each), a record a sweep (two CSR matvecs, two colsum), then
+    # CG (its dots and records through colsum: 1 + 4 an iteration).
+    argv = ("--format", "csr", "--n", str(SPD_N), "--rhs", str(K),
+            "--sweeps", str(GS_SWEEPS))
+    (res, text, _), wall = counted(
+        f"(a) launch.solve {' '.join(argv)}",
+        {"sweep_rows_gs": GS_SWEEPS, "spmv_csr_sliced": 2 * GS_SWEEPS,
+         "colsum": 2 * GS_SWEEPS + 1 + 4 * GS_SWEEPS},
+        lambda: in_process(solve_cli, argv))
+    sync, cgl, th = (cli_numbers(text, p) for p in ("sync RGS", "CG",
+                                                    "theory"))
+    b0 = float(torch.linalg.vector_norm(res["problem"].b[:, 0]))
+    check(all(math.isfinite(d.get("resid", math.nan)) and d["resid"] < b0
+              for d in (sync, cgl))
+          and bool(torch.isfinite(res["sync"].resid).all())
+          and bool(torch.isfinite(res["cg"].resid).all()),
+          f"(a) launch.solve: resid finite and below ||b[:, 0]|| = {b0:.4g} "
+          f"(sync RGS {sync.get('resid')}, CG {cgl.get('resid')})")
+    check(unit(th.get("beta~", 0)) and unit(th.get("nu_tau(beta~)", 0))
+          and unit(th.get("factor", 0)),
+          f"(a) launch.solve: 0 < beta~ = {th.get('beta~')} <= 1, rate "
+          f"factors nu_tau(beta~) = {th.get('nu_tau(beta~)')} and epoch "
+          f"factor {th.get('factor')} in (0, 1]")
+    print(f"  (a) launch.solve wall s: sync RGS {sync.get('s')}, CG "
+          f"{cgl.get('s')}, the whole call {wall:.3f} (problem build "
+          "included)", flush=True)
+
+    # launch.lsq in process: one sweep_rows_rk launch a sweep, a record a
+    # sweep (one CSR matvec, two colsum); the async pass densifies (with
+    # the warning) and records through colsum; CG on the normal equations
+    # 1 + 4 an iteration.
+    argv = ("--format", "csr", "--m", str(LSQ_M), "--n", str(LSQ_N), "--rhs",
+            str(K), "--sweeps", str(CLI_LSQ_SWEEPS), "--tau", str(CLI_TAU))
+    (res, text, warned), wall = counted(
+        f"(a) launch.lsq {' '.join(argv)}",
+        {"sweep_rows_rk": CLI_LSQ_SWEEPS, "spmv_csr_sliced": CLI_LSQ_SWEEPS,
+         "colsum": 4 * CLI_LSQ_SWEEPS + 1 + 4 * CLI_LSQ_SWEEPS},
+        lambda: in_process(lsq_cli, argv))
+    seq, asy, cgn, th = (cli_numbers(text, p) for p in (
+        "seq RK", "async RK", "CG (A^T A)", "theory"))
+    check(all(math.isfinite(d.get("resid", math.nan)) and d["resid"] < 1.0
+              for d in (seq, asy, cgn)),
+          f"(a) launch.lsq: relative residuals finite and below 1, the "
+          f"start (seq RK {seq.get('resid')}, async RK {asy.get('resid')}, "
+          f"CG {cgn.get('resid')})")
+    check(unit(asy.get("beta~", 0)) and unit(th.get("sync", 0))
+          and unit(th.get(f"async(tau={CLI_TAU})", 0)),
+          f"(a) launch.lsq: 0 < beta~ = {asy.get('beta~')} <= 1, rate "
+          f"factors sync {th.get('sync')} and async "
+          f"{th.get(f'async(tau={CLI_TAU})')} in (0, 1]")
+    check(any("densifies CsrOp exactly" in w for w in warned),
+          "(a) launch.lsq: the simulator warned that it densifies the CSR "
+          "operator")
+    rk_full = CLI_LSQ_SWEEPS * LSQ_M
+    print(f"  (a) launch.lsq wall s: seq RK {seq.get('s')}, async RK "
+          f"{asy.get('s')} ({1e6 * asy.get('s', math.nan) / rk_full:.2f} "
+          f"us a step over {rk_full} steps at {LSQ_M}x{LSQ_N}, k={K}; the "
+          f"densify included), CG {cgn.get('s')}, theory (two svdvals) "
+          f"{th.get('s')}; the whole call {wall:.3f}", flush=True)
+
+    # (c) the simulator on the card, on the CPU runs' streams
+    sim = SPDProblem(*(t.to(dev) for t in sim_cpu))
+    x0 = torch.zeros_like(sim.b)
+    e0 = (sim.x_star * (sim.A @ sim.x_star)).sum(0)
+    (seq0, asy0), _ = counted(
+        f"(c) tau=0: rgs_solve and async_rgs_solve, {steps} steps each",
+        {"colsum": 4 * SIM_SWEEPS},
+        lambda: (rgs_solve(sim.A, sim.b, x0, sim.x_star, num_iters=steps,
+                           picks=sim_picks, record_every=SIM_N),
+                 async_rgs_solve(sim.A, sim.b, x0, sim.x_star,
+                                 num_iters=steps, tau=0, picks=sim_picks,
+                                 record_every=SIM_N)))
+    check(torch.equal(asy0.x, seq0.x) and torch.equal(asy0.err_sq,
+                                                      seq0.err_sq),
+          f"(c) tau=0: async_rgs_solve is bitwise rgs_solve on the same "
+          f"{steps} picks (x and err_sq)")
+
+    def no_sync(fn):
+        """``fn()`` with any host synchronization an error."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(), None
+        except RuntimeError as e:
+            return None, str(e)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    times = []
+    for (tau, mode), (kw, cpu) in runs.items():
+        tag = f"(c) tau={tau} {mode} beta={kw['beta']:.4f}"
+        (out, err), wall = counted(
+            tag, {"colsum": 2 * SIM_SWEEPS},
+            lambda kw=kw: no_sync(lambda: async_rgs_solve(
+                sim.A, sim.b, x0, sim.x_star, **kw)))
+        check(err is None, f"{tag}: no host synchronization in the solve "
+              f"(sync debug mode 'error'; {err})")
+        times.append(wall)
+        fall = float((out.err_sq[-1] / e0).max())
+        need = SIM_INC_FALL if mode == "inconsistent" else SIM_FALL
+        cond = (f"2 rho tau = {2 * rho * tau:.4f} < 1" if mode !=
+                "inconsistent" else f"omega_tau(beta) = "
+                f"{theory.omega_tau(rho2, tau, kw['beta']):.4f} > 0")
+        check(fall <= need and bool(torch.isfinite(out.x).all()),
+              f"{tag}: err_sq falls to {fall:.3e} <= {need:g} of its start "
+              f"({cond}); {1e6 * wall / steps:.2f} us a step")
+        if cpu is not None:
+            e = rel(out.x.cpu(), cpu.x)
+            ee = float(((out.err_sq[-1].cpu() - cpu.err_sq[-1]).abs()
+                        / cpu.err_sq[-1]).max())
+            check(e <= SIM_RTOL and ee <= SIM_ERR_RTOL,
+                  f"{tag}: the card against the CPU on the same streams: "
+                  f"x rel {e:.3e} <= {SIM_RTOL:g}, last err_sq rel "
+                  f"{ee:.3e} <= {SIM_ERR_RTOL:g}")
+    print(f"  (c) simulator, n={SIM_N} k={SIM_K}: {1e6 * min(times) / steps:.2f}"
+          f"-{1e6 * max(times) / steps:.2f} us a step over "
+          f"{len(times)} runs of {steps} steps", flush=True)
+
+    rk_prob = tuple(t.to(dev) for t in rk_cpu)
+    (out, err), wall = counted(
+        f"(c) async_rk_solve random_lsq({SIM_RK_M}, {SIM_RK_N}) tau="
+        f"{SIM_RK_TAU}", {"colsum": 2 * SIM_RK_SWEEPS},
+        lambda: no_sync(lambda: async_rk_solve(
+            rk_prob[0], rk_prob[1], torch.zeros_like(rk_prob[2]),
+            rk_prob[2], **rk_kw)))
+    check(err is None, "(c) async_rk_solve: no host synchronization in the "
+          f"solve ({err})")
+    e = rel(out.x.cpu(), rk_cpu_res.x)
+    r0 = torch.linalg.vector_norm(rk_prob[1], dim=0)
+    check(e <= SIM_RTOL and bool((out.resid[-1] < r0).all()),
+          f"(c) async_rk_solve: the card against the CPU, x rel {e:.3e} <= "
+          f"{SIM_RTOL:g}; the residual falls from ||b|| (relative "
+          f"{float((out.resid[-1] / r0).max()):.4e}); beta~ {rk_beta:.4f}; "
+          f"{1e6 * wall / rk_steps:.2f} us a step ({rk_steps} steps, "
+          f"{SIM_RK_M}x{SIM_RK_N}, k={SIM_RK_K})")
+
+    # (d) flexible CG on the 2-D Laplacian, against plain CG
+    t0 = time.perf_counter()
+    lap = laplacian_spd(FCG_SIDE, shift=1e-2, n_rhs=K, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"  (d) laplacian_spd({FCG_SIDE}), n={lap.n}, k={K}: "
+          f"{time.perf_counter() - t0:.2f} s, kappa {float(lap.kappa):.1f}",
+          flush=True)
+    x0 = torch.zeros_like(lap.x_star)
+    nb = lap.n // FCG_BLOCK
+    probe = make_rgs_preconditioner(lap.A, sweeps=FCG_SWEEPS,
+                                    block=FCG_BLOCK, beta=1.0,
+                                    seed=SEED + 61)
+    got = probe(lap.b)
+    want = ref.block_gs_sweep_ref(
+        lap.A, lap.b, torch.zeros_like(lap.b), torch.randint(
+            0, nb, (FCG_SWEEPS * nb,), device=dev,
+            generator=torch.Generator(dev).manual_seed(SEED + 61)),
+        block=FCG_BLOCK, beta=1.0)
+    e = rel(got, want)
+    check(e <= SWEEP_RTOL, f"(d) one preconditioner application "
+          f"({FCG_SWEEPS * nb} blocks of {FCG_BLOCK}) against "
+          f"block_gs_sweep_ref: rel err {e:.3e} <= {SWEEP_RTOL:g}")
+    plain, plain_s = counted(
+        f"(d) cg_solve, {FCG_ITERS} iterations",
+        {"colsum": 1 + 4 * FCG_ITERS},
+        lambda: cg_solve(lap.A, lap.b, x0, lap.x_star, num_iters=FCG_ITERS))
+    pre = make_rgs_preconditioner(lap.A, sweeps=FCG_SWEEPS, block=FCG_BLOCK,
+                                  beta=1.0)
+    applied = []
+
+    def precond(r):
+        applied.append(1)
+        return pre(r)
+
+    flex, flex_s = counted(
+        f"(d) fcg_solve, {FCG_ITERS} iterations ({FCG_ITERS + 1} "
+        "preconditioner applications)",
+        {"block_gs_sweep": FCG_ITERS + 1, "colsum": 1 + 5 * FCG_ITERS},
+        lambda: fcg_solve(lap.A, lap.b, x0, lap.x_star, precond=precond,
+                          num_iters=FCG_ITERS))
+    fr, pr = float(flex.resid[-1].max()), float(plain.resid[-1].max())
+    f0 = float(flex.resid[0].max())
+    check(len(applied) == FCG_ITERS + 1 and fr < pr and fr < 1e-2 * f0,
+          f"(d) FCG's last residual {fr:.4e} is below plain CG's {pr:.4e} "
+          f"after {FCG_ITERS} iterations and below 1e-2 of its first "
+          f"({f0:.4e}); one block_gs_sweep launch for each of "
+          f"{len(applied)} applications; wall s FCG {flex_s:.3f}, CG "
+          f"{plain_s:.3f}")
+    del lap, pre, probe, got, want
+
+    # (e) the theory on the card
+    t0 = time.perf_counter()
+    lo, hi = theory.lanczos_extreme_eigs(
+        sim.A, generator=torch.Generator(dev).manual_seed(SEED + 71))
+    lo, hi = float(lo), float(hi)
+    lz_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dlo, dhi = (float(v) for v in theory.extreme_eigs_dense(sim.A))
+    dense_s = time.perf_counter() - t0
+    check(abs(lo - dlo) <= LANCZOS_RTOL * dlo
+          and abs(hi - dhi) <= LANCZOS_RTOL * dhi,
+          f"(e) lanczos_extreme_eigs (64 iterations, {lz_s:.3f} s) "
+          f"[{lo:.6f}, {hi:.6f}] against eigvalsh ({dense_s:.3f} s) "
+          f"[{dlo:.6f}, {dhi:.6f}] within rtol {LANCZOS_RTOL:g}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk_rho = float(theory.rk_rho(lsq.A))
+    rho_s = time.perf_counter() - t0
+    A64 = lsq.A.double()
+    Ahat = A64 / torch.sqrt((A64 * A64).sum(1))[:, None]
+    p64 = (A64 * A64).sum(1)
+    p64 = p64 / p64.sum()
+    want = max(float(((Ahat[i:i + LSQ_N] @ Ahat.T).abs() @ p64).max())
+               for i in range(0, LSQ_M, LSQ_N))
+    del A64, Ahat
+    check(unit(rk_rho) and abs(rk_rho - want) <= RK_RHO_RTOL * want,
+          f"(e) rk_rho of the {LSQ_M}x{LSQ_N} design ({LSQ_M}^2 Gram "
+          f"matrix, {rho_s:.3f} s) {rk_rho:.6f} in (0, 1], against f64 by "
+          f"row blocks {want:.6f} within rtol {RK_RHO_RTOL:g}")
+
+    # (f)
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "(f) torch.backends.cuda.matmul.allow_tf32 is still False after "
+          "the CLIs ran: CG's f32 products stayed f32")
+    print(f"  sequential CLI phase: {time.perf_counter() - t_phase:.2f} s "
+          "wall", flush=True)
+
+
+def main() -> int:
+    import torch
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2367,6 +2792,10 @@ def main() -> int:
     print("== serving: SolverService over the CSR GS and RK problems",
           flush=True)
     serving_phase(torch, ops, spd, lsq, launches)
+
+    print("== the sequential CLIs, the simulator, CG and the theory",
+          flush=True)
+    sequential_cli_phase(torch, ops, lsq, launches)
 
     print(f"== timing (CUDA events, f32/i32 storage, k={K})", flush=True)
     lines = []

@@ -26,21 +26,28 @@ stream, which is how the tests feed both packages the same directions.
 
 A ``Schedule`` with ``rounds``/``local_steps`` runs the distributed
 engine on a ``torch.distributed`` process group (``solve(..., group=)``).
+A ``Schedule`` with ``tau > 0`` runs ``solve_async_sim``, the bounded-delay
+simulator of the paper's Secs. 4 and 6: plain PyTorch (the reference's is a
+``jnp`` scan with no Pallas kernel), a few launches a step, with the pick
+and delay streams read to the host once per solve so that no step waits
+for the card.  Its delays come from ``delay_generator=`` (a different
+stream from the reference's ``delay_key``) or from ``delays=``.
 
 The serving unit is ``sequential_chunk`` (one record chunk: the sweep and
 the residual) and ``solve_batched`` (chunks with per-column tolerances and
 early exit), which ``serve/`` drives.
 
-Not ported yet: the bounded-delay simulator (ROADMAP queue 1 item 6), the
-distributed strategies other than Kaczmarz under the delta all-reduce
-(item 8) and block GS with ``gs_block > 1`` on the CSR format (queue 1
-item 3).
+Not ported yet: the distributed strategies other than Kaczmarz under the
+delta all-reduce (ROADMAP queue 1 item 8) and block GS with
+``gs_block > 1`` on the CSR format (queue 1 item 3).
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.operators import BlockBandedOp, DenseOp, as_operator
@@ -118,22 +125,24 @@ def scheduled_tau(num_workers: int, local_steps: int, *,
 
 
 class Schedule(NamedTuple):
-    """Execution plan for ``solve``: exactly one of two modes.
+    """Execution plan for ``solve``: exactly one of three modes.
 
     * sequential:  ``num_iters`` > 0 steps, recorded every
       ``record_every`` steps (``0``: once, at the end);
+    * bounded-delay simulator: the same with ``tau`` > 0, every read up
+      to ``tau`` updates stale (``solve_async_sim``);
     * distributed: ``rounds`` > 0 rounds of ``local_steps`` > 0 local
       updates each, a sync and a record after every round (needs a
       process group).
 
-    The reference's other fields (the bounded-delay simulator's ``tau``
-    and the distributed ``partition``/``overlap``/``compress``) are not
-    ported yet (ROADMAP queue 1 items 6 and 8); they come with the code
-    that reads them.
+    The reference's distributed ``partition``/``overlap``/``compress`` are
+    not ported yet (ROADMAP queue 1 item 8); they come with the code that
+    reads them.
     """
     num_iters: int = 0
     rounds: int = 0
     local_steps: int = 0
+    tau: int = 0
     record_every: int = 0
 
     @property
@@ -143,18 +152,21 @@ class Schedule(NamedTuple):
     def validate(self) -> "Schedule":
         """Reject ambiguous mode mixtures with a message naming the fields
         (the reference's checks on these fields)."""
-        if self.distributed and self.num_iters > 0:
+        if self.distributed and (self.num_iters > 0 or self.tau > 0):
             raise ValueError(
                 "ambiguous Schedule: rounds/local_steps (distributed) "
-                "cannot be combined with num_iters (sequential) — got "
-                f"{self}")
+                "cannot be combined with num_iters/tau (sequential / async "
+                f"simulator) — got {self}")
         if self.distributed and self.local_steps <= 0:
             raise ValueError(
                 f"a distributed Schedule needs local_steps > 0 (got {self})")
+        if self.tau < 0:
+            raise ValueError(f"tau must be >= 0 (got {self})")
         if not self.distributed:
             if self.num_iters <= 0:
                 raise ValueError(
-                    f"a sequential Schedule needs num_iters > 0 (got {self})")
+                    "a sequential/async Schedule needs num_iters > 0 "
+                    f"(got {self})")
             if self.local_steps > 0:
                 raise ValueError(
                     "local_steps without rounds is ambiguous — set rounds > 0 "
@@ -349,6 +361,215 @@ def solve_sequential(
 
 
 # ---------------------------------------------------------------------------
+# Bounded-delay asynchronous simulator (the paper's Secs. 4/6 read models)
+# ---------------------------------------------------------------------------
+
+#: consistent-read delay schedules understood by ``solve_async_sim``
+DELAY_MODES = ("fixed", "uniform", "cyclic")
+#: read models understood by ``solve_async_sim``
+READ_MODELS = ("consistent", "inconsistent")
+
+
+def draw_delays(num_iters: int, tau: int, *, read_model: str,
+                delay_mode: str, miss_prob: float,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """The simulator's delay stream, on the generator's device (the CPU
+    where none is needed).
+
+    Consistent reads: ``(num_iters,)`` int32 delays s_j — ``"fixed"``
+    s_j = tau, ``"uniform"`` s_j ~ U{0..tau} (drawn from ``generator``),
+    ``"cyclic"`` s_j = j mod (tau + 1).  Inconsistent reads: a
+    ``(num_iters, max(tau, 1))`` bool mask, each of the last tau updates
+    invisible with probability ``miss_prob`` (drawn from ``generator``).
+    """
+    if read_model == "consistent":
+        if delay_mode == "fixed":
+            return torch.full((num_iters,), tau, dtype=torch.int32)
+        if delay_mode == "cyclic":
+            return (torch.arange(num_iters) % (tau + 1)).to(torch.int32)
+        if delay_mode != "uniform":
+            raise ValueError(f"unknown delay_mode: {delay_mode!r} (expected "
+                             f"one of {DELAY_MODES})")
+    elif read_model != "inconsistent":
+        raise ValueError(f"unknown read_model: {read_model!r} (expected one "
+                         f"of {READ_MODELS})")
+    if generator is None:
+        raise ValueError(
+            f"{read_model} reads with delay_mode={delay_mode!r} draw their "
+            "delays: pass a delay_generator or delays")
+    if read_model == "consistent":
+        return torch.randint(0, tau + 1, (num_iters,), generator=generator,
+                             dtype=torch.int32, device=generator.device)
+    return torch.rand((num_iters, max(tau, 1)), generator=generator,
+                      device=generator.device) < miss_prob
+
+
+def _host_delays(delays, num_iters: int, tau: int,
+                 read_model: str) -> np.ndarray:
+    """A given delay stream as a checked numpy array: (num_iters,) delays
+    in [0, tau] for consistent reads, a (num_iters, max(tau, 1)) mask for
+    inconsistent ones."""
+    d = np.asarray(torch.as_tensor(delays).cpu())
+    if read_model == "consistent":
+        if d.shape != (num_iters,):
+            raise ValueError(f"delays has shape {d.shape}, expected "
+                             f"({num_iters},) for consistent reads")
+        d = d.astype(np.int64)
+        if d.size and (d.min() < 0 or d.max() > tau):
+            raise ValueError(f"delays span [{d.min()}, {d.max()}], allowed "
+                             f"[0, {tau}]")
+        return d
+    if d.shape != (num_iters, max(tau, 1)):
+        raise ValueError(f"delays has shape {d.shape}, expected "
+                         f"({num_iters}, {max(tau, 1)}) for inconsistent "
+                         "reads")
+    return d.astype(bool)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the card: a copy
+    from pinned memory, queued on the current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def solve_async_sim(
+    op,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    x_star: torch.Tensor | None,
+    *,
+    action: str,
+    num_iters: int,
+    tau: int,
+    generator: torch.Generator | None = None,
+    picks: torch.Tensor | None = None,
+    delay_generator: torch.Generator | None = None,
+    delays: torch.Tensor | None = None,
+    beta: float = 1.0,
+    read_model: str = "consistent",
+    delay_mode: str = "fixed",
+    miss_prob: float = 0.5,
+    record_every: int = 0,
+) -> SolveResult:
+    """Faithful simulator of delays bounded by ``tau`` (consistent and
+    inconsistent reads), for both the coordinate ("gs") and row ("rk")
+    actions.  A ring buffer holds the last ``max(tau, 1)`` applied update
+    amounts; the stale read is rebuilt exactly via
+
+        A_r x_stale = A_r x - sum_{t invisible} c_t * w(r, r_t)
+
+    with ``w`` the coupling ``A[r, r_t]`` for the coordinate action and the
+    row inner product ``<A_r, A_{r_t}>`` for the row action (which divides
+    by ``||A_r||^2``).  Consistent reads miss the last s_j updates
+    (``delay_mode``, see ``draw_delays``); inconsistent reads miss each of
+    the last tau updates by a Bernoulli mask.
+
+    Streams: ``picks`` or a draw of ``generator`` (``draw_picks``), and
+    ``delays`` or a draw of ``delay_generator`` (``draw_delays``),
+    independent of each other (Assumption A-4).  Both are read to the host
+    once; the ring slots and invisible updates of every step are worked
+    out there and copied to the device once per record chunk, so the steps
+    themselves (a few launches each) never wait for the card.  A GS step
+    with nothing invisible takes ``DenseOp.gs_sweep``'s exact calls, so at
+    ``tau = 0`` the GS iterates are bitwise the sequential engine's on the
+    same picks.  The row action keeps the reference simulator's arithmetic
+    (``x += A_r * (beta * gamma)``).
+
+    Sparse operators are densified exactly (with a ``UserWarning``): the
+    correction needs arbitrary couplings and row inner products, so the
+    simulator — a research tool for delay models, not a performance path —
+    reads dense rows whatever the format.
+    """
+    if not isinstance(op, DenseOp):
+        if not hasattr(op, "to_dense"):
+            raise NotImplementedError(
+                "the async simulator needs a densifiable operator "
+                f"(got {type(op).__name__})")
+        # to_dense() reconstructs the stored values bit for bit, so the
+        # simulated iterates are exact; only the cost model changes.
+        warnings.warn(
+            f"solve_async_sim densifies {type(op).__name__} exactly: the "
+            "bounded-delay simulator ignores the format's sparsity and "
+            "pays dense row reads per step (it is a research tool for delay "
+            "models, not a sparse performance path — use solve_distributed "
+            "for sparse-aware execution)", UserWarning, stacklevel=2)
+        op = DenseOp(op.to_dense())
+    if action not in ("gs", "rk"):
+        raise ValueError(f"unknown action: {action!r}")
+    if read_model not in READ_MODELS or delay_mode not in DELAY_MODES:
+        raise ValueError(f"unknown read_model {read_model!r} or delay_mode "
+                         f"{delay_mode!r} (expected one of {READ_MODELS}, "
+                         f"{DELAY_MODES})")
+    if tau < 0:
+        raise ValueError(f"tau must be >= 0, got {tau}")
+    rec = resolve_record_every(num_iters, record_every)
+    t_buf = max(tau, 1)
+    dev = op.device
+    if picks is None:
+        if generator is None:
+            raise ValueError("the async simulator needs a generator or picks")
+        picks = draw_picks(op, action, num_iters, generator=generator)
+    p = np.asarray(torch.as_tensor(picks).cpu()).astype(np.int64)
+    if p.shape != (num_iters,):
+        raise ValueError(f"picks has shape {p.shape}, expected ({num_iters},)")
+    if p.size and (p.min() < 0 or p.max() >= op.shape[0]):
+        raise IndexError(f"pick ids span [{p.min()}, {p.max()}], allowed "
+                         f"[0, {op.shape[0]})")
+    if delays is None:
+        delays = draw_delays(num_iters, tau, read_model=read_model,
+                             delay_mode=delay_mode, miss_prob=miss_prob,
+                             generator=delay_generator)
+    d = _host_delays(delays, num_iters, tau, read_model)
+
+    A = op.A
+    rn = op.row_norms_sq() if action == "rk" else None
+    norm = "A" if action == "gs" else "euclid"
+    x = x0.clone()
+    ring = torch.zeros((t_buf, b.shape[1]), dtype=x.dtype, device=dev)
+    offsets = np.arange(t_buf)
+    errs, resids = [], []
+    for c in range(num_iters // rec):
+        # Host plan of the chunk: for step j, the iterations it misses,
+        # newest first, as (pick, ring slot) pairs at [ptr[j], ptr[j+1]).
+        js = np.arange(c * rec, (c + 1) * rec)
+        it = js[:, None] - 1 - offsets[None, :]
+        if read_model == "consistent":
+            inv = (offsets[None, :] < d[js, None]) & (it >= 0)
+        else:
+            inv = d[js] & (it >= 0) & (offsets[None, :] < tau)
+        ptr = np.concatenate([[0], np.cumsum(inv.sum(1))]).tolist()
+        missed = it[inv]
+        if missed.size:
+            rs = _upload(p[missed], dev)
+            slots = _upload(missed % t_buf, dev)
+        for i, (j, r) in enumerate(zip(js.tolist(), p[js].tolist())):
+            lo, hi = ptr[i], ptr[i + 1]
+            row = A[r].to(x.dtype)
+            gamma = b[r] - row @ x
+            if hi > lo:
+                w = (row.index_select(0, rs[lo:hi]) if action == "gs"
+                     else A.index_select(0, rs[lo:hi]).to(x.dtype) @ row)
+                gamma = gamma + w @ ring.index_select(0, slots[lo:hi])
+            if action == "gs":
+                applied = beta * gamma
+                x[r] += applied
+            else:
+                applied = beta * (gamma / rn[r])
+                x += row[:, None] * applied[None, :]
+            if tau > 0:
+                ring[j % t_buf] = applied
+        err, resid = record_metrics(op, b, x, x_star, norm=norm)
+        errs.append(err)
+        resids.append(resid)
+    iters = (1 + torch.arange(num_iters // rec, device=x.device)) * rec
+    return SolveResult(x=x, err_sq=torch.stack(errs),
+                       resid=torch.stack(resids), iters=iters)
+
+
+# ---------------------------------------------------------------------------
 # Batched-RHS chunked entry (the serving layer's engine surface)
 # ---------------------------------------------------------------------------
 
@@ -477,6 +698,11 @@ def solve(
     group=None,
     sync: str = "auto",
     seed: int | None = None,
+    delay_generator: torch.Generator | None = None,
+    delays: torch.Tensor | None = None,
+    read_model: str = "consistent",
+    delay_mode: str = "fixed",
+    miss_prob: float = 0.5,
 ):
     """One front door for the solver family, on the device of the
     problem's tensors.
@@ -494,7 +720,11 @@ def solve(
     coordinate GS).
 
     A sequential ``schedule`` draws its direction stream from
-    ``generator`` (``seed`` raises) or takes ``picks``.  A distributed one (``rounds``,
+    ``generator`` (``seed`` raises) or takes ``picks``.  With ``tau > 0``
+    it runs the bounded-delay simulator (``solve_async_sim``), whose delays
+    come from ``delay_generator`` or ``delays`` (one of them is required,
+    as the reference requires its ``delay_key``), under ``read_model``,
+    ``delay_mode`` and ``miss_prob``.  A distributed one (``rounds``,
     ``local_steps``) runs ``core.distributed.solve_distributed`` on the
     ``torch.distributed`` process group ``group`` (the counterpart of the
     reference's ``mesh``): every rank calls ``solve`` with the whole
@@ -538,6 +768,20 @@ def solve(
     if seed is not None:
         raise ValueError("a sequential solve draws its stream from "
                          "generator= (or takes picks=), not from seed=")
+    if schedule.tau > 0:
+        if delay_generator is None and delays is None:
+            raise ValueError("the bounded-delay simulator needs a "
+                             "delay_generator or delays")
+        if gs_block != 1:
+            raise ValueError(f"gs_block={gs_block}: the bounded-delay "
+                             "simulator steps coordinates or rows")
+        return solve_async_sim(
+            op, problem.b, x0, problem.x_star, action=action,
+            num_iters=schedule.num_iters, tau=schedule.tau,
+            generator=generator, picks=picks,
+            delay_generator=delay_generator, delays=delays, beta=beta,
+            read_model=read_model, delay_mode=delay_mode,
+            miss_prob=miss_prob, record_every=schedule.record_every)
     return solve_sequential(
         op, problem.b, x0, problem.x_star, action=action,
         num_iters=schedule.num_iters, generator=generator, picks=picks,

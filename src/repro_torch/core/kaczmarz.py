@@ -1,11 +1,19 @@
-"""Sparse least-squares problems for randomized Kaczmarz (port of the
-problem half of ``repro/core/kaczmarz.py``; the solver is the engine's
-``"rk"`` action).
+"""Least-squares problems and randomized Kaczmarz (port of
+``repro/core/kaczmarz.py``, the paper's Sec. 7).
 
-``random_sparse_lsq`` runs the reference's numpy construction line for
-line, so ``A``, ``x_true`` and ``b`` are bitwise the reference's; the
-singular values (and, with noise, the least-squares solution) are computed
-on ``device`` (``None``: the card).
+``random_lsq`` (dense Gaussian design) and ``random_sparse_lsq`` run the
+reference's numpy construction line for line, so ``A``, ``x_true`` and
+``b`` are bitwise the reference's; the singular values (and, with noise,
+the least-squares solution) are computed on ``device`` (``None``: the
+card).
+
+``rk_solve`` (sequential) and ``async_rk_solve`` (the bounded-delay
+simulator) are thin wrappers over the engine's ``"rk"`` action on a
+``DenseOp``.  They take ``generator=``/``picks=`` (and
+``delay_generator=``/``delays=``) where the reference takes ``jax.random``
+keys: different streams, so the tests hand the port the reference's.
+``parallel_rk_solve`` is not ported yet: its dense strategy belongs to the
+distributed engine's rest (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -14,7 +22,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.engine import (SolveResult, scheduled_tau,
+                                     solve_async_sim, solve_sequential)
+from repro_torch.core.operators import DenseOp
 from repro_torch.core.spd import resolve_device
+
+__all__ = ["LSQProblem", "async_rk_solve", "random_lsq", "random_sparse_lsq",
+           "rk_effective_tau", "rk_solve", "row_norms_sq"]
 
 
 class LSQProblem(NamedTuple):
@@ -34,6 +48,52 @@ class LSQProblem(NamedTuple):
     @property
     def kappa(self) -> torch.Tensor:
         return self.sigma_max / self.sigma_min
+
+
+def _finish(A, b, x_true, noise, device) -> LSQProblem:
+    """The problem on ``device``: the least-squares solution by ``lstsq``
+    when there is noise (else the planted coefficients), and the singular
+    values, both computed there.  ``lstsq`` returns its solution
+    column-major; it is made contiguous, as the record sums need."""
+    A_t = torch.from_numpy(A).to(device)
+    b_t = torch.from_numpy(b).to(device)
+    x_true_t = torch.from_numpy(x_true).to(device)
+    x_star = (torch.linalg.lstsq(A_t, b_t).solution.contiguous() if noise
+              else x_true_t)
+    s = torch.linalg.svdvals(A_t)
+    return LSQProblem(A=A_t, b=b_t, x_star=x_star, x_true=x_true_t,
+                      sigma_min=s[-1], sigma_max=s[0])
+
+
+def random_lsq(
+    m: int,
+    n: int,
+    *,
+    n_rhs: int = 1,
+    noise: float = 0.0,
+    col_scale: float = 1.0,
+    seed: int = 0,
+    device=None,
+) -> LSQProblem:
+    """Gaussian design with exponentially skewed column scales (the shape of
+    the paper's regression features), planted coefficients, optional noise.
+
+    ``noise = 0`` gives a consistent system (RK converges to x* exactly);
+    ``noise > 0`` a genuine least-squares problem where RK reaches the
+    low-accuracy neighborhood of x*.
+    """
+    if m < n:
+        raise ValueError(f"need m >= n, got ({m}, {n})")
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)).astype(np.float32)
+    if col_scale:
+        A *= rng.exponential(col_scale, n).astype(np.float32)
+    x_true = rng.standard_normal((n, n_rhs)).astype(np.float32)
+    b = A @ x_true
+    if noise:
+        b = b + noise * rng.standard_normal((m, n_rhs)).astype(np.float32)
+    return _finish(A, b, x_true, noise, device)
 
 
 def random_sparse_lsq(
@@ -61,16 +121,54 @@ def random_sparse_lsq(
     b = A @ x_true
     if noise:
         b = b + noise * rng.standard_normal((m, n_rhs)).astype(np.float32)
-    A_t = torch.from_numpy(A).to(device)
-    b_t = torch.from_numpy(b).to(device)
-    x_true_t = torch.from_numpy(x_true).to(device)
-    x_star = torch.linalg.lstsq(A_t, b_t).solution if noise else x_true_t
-    s = torch.linalg.svdvals(A_t)
-    return LSQProblem(A=A_t, b=b_t, x_star=x_star, x_true=x_true_t,
-                      sigma_min=s[-1], sigma_max=s[0])
+    return _finish(A, b, x_true, noise, device)
 
 
 def row_norms_sq(A: torch.Tensor) -> torch.Tensor:
     """||A_i||^2 per row — the (unnormalized) sampling distribution."""
     A = A.float()
     return (A * A).sum(1)
+
+
+def rk_solve(A: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
+             x_star: torch.Tensor | None, *, num_iters: int,
+             generator: torch.Generator | None = None,
+             picks: torch.Tensor | None = None, beta: float = 1.0,
+             record_every: int = 0) -> SolveResult:
+    """Sequential randomized Kaczmarz on ``A x ~= b`` (A rectangular, b
+    (m, k): one row serves all k right-hand sides).  ``err_sq`` records
+    ||x - x*||_2^2, ``resid`` ||b - A x||_2 per RHS."""
+    return solve_sequential(
+        DenseOp(A), b, x0, x_star, action="rk", num_iters=num_iters,
+        generator=generator, picks=picks, beta=beta,
+        record_every=record_every)
+
+
+def async_rk_solve(A: torch.Tensor, b: torch.Tensor, x0: torch.Tensor,
+                   x_star: torch.Tensor | None, *, num_iters: int, tau: int,
+                   generator: torch.Generator | None = None,
+                   picks: torch.Tensor | None = None,
+                   delay_generator: torch.Generator | None = None,
+                   delays: torch.Tensor | None = None, beta: float = 1.0,
+                   read_model: str = "consistent",
+                   delay_mode: str = "fixed", miss_prob: float = 0.5,
+                   record_every: int = 0) -> SolveResult:
+    """Asynchronous RK under the paper's bounded-delay model: the engine's
+    ring-buffer simulator with the row action, the stale read rebuilt
+    exactly as ``A_r x_{k(j)} = A_r x_j - sum_{t invisible} c_t <A_r,
+    A_{r_t}>``.  Delays come from ``delay_generator`` (or ``delays``),
+    independent of the row stream (Assumption A-4); ``delay_mode`` and
+    ``read_model`` as in ``engine.solve_async_sim``."""
+    return solve_async_sim(
+        DenseOp(A), b, x0, x_star, action="rk", num_iters=num_iters, tau=tau,
+        generator=generator, picks=picks, delay_generator=delay_generator,
+        delays=delays, beta=beta, read_model=read_model,
+        delay_mode=delay_mode, miss_prob=miss_prob,
+        record_every=record_every)
+
+
+def rk_effective_tau(num_workers: int, local_steps: int) -> int:
+    """Scheduled staleness bound of the shared-stream distributed RK
+    (``engine.scheduled_tau(shared_stream=True)``): within a round a pick
+    misses at most the other workers' earlier in-round updates."""
+    return scheduled_tau(num_workers, local_steps, shared_stream=True)

@@ -15,11 +15,8 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.core import random_sparse_lsq, random_sparse_spd
+from repro_torch.launch.solve import FORMAT_CHOICES
 from repro_torch.serve import SolverService, open_loop_load
-
-#: the formats the service takes (the sequential CLIs, which will own this
-#: list, are not ported yet)
-FORMAT_CHOICES = ("dense", "ell", "csr")
 
 
 def build_service(args) -> tuple[SolverService, str]:

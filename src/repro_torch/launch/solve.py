@@ -1,0 +1,129 @@
+"""Solver launcher — the paper's algorithm as a CLI (port of the sequential
+passes of ``repro/launch/solve.py``).
+
+``python -m repro_torch.launch.solve --n 4096 --rhs 8 --sweeps 10`` builds
+a reference-scenario SPD system on ``--device`` (the card by default;
+``cpu`` only when asked) and solves it through
+``repro_torch.solve(problem, format=..., schedule=...)``: (a) sequential
+randomized Gauss-Seidel, (b) CG, printing residuals, the paper's
+theoretical rate factors and the step size beta~ for the staleness
+``scheduled_tau(--workers, --local-steps)`` of the distributed schedule.
+``--format ell`` runs the sequential pass through the ELL operator and
+``--format csr`` through CSR (one sweep-kernel launch per sweep on the
+card).
+
+Not ported yet (ROADMAP queue 1 item 8): the reference's distributed pass
+and its flags ``--sync``, ``--partition``, ``--overlap`` and
+``--compress``; distributed GS has no port.  The reference's ``--fused``
+is gone: the port has one engine.  The direction stream is a
+``torch.Generator`` seeded 1, not the reference's ``jax.random.key(1)``,
+so residuals differ from the reference CLI's.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.core import (Schedule, cg_solve, random_sparse_spd, solve,
+                              theory)
+from repro_torch.core.engine import scheduled_tau
+from repro_torch.core.operators import STORAGE_DTYPES
+
+#: the --format flag values, shared with the serve launcher so the two
+#: CLIs' choices cannot drift
+FORMAT_CHOICES = ("dense", "ell", "csr")
+
+
+def wait(device: torch.device) -> None:
+    """Let the card finish its queued work, so a pass's wall time is
+    whole."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def default_workers(device: torch.device) -> int:
+    """``--workers 0``: one worker per local device (CUDA devices on the
+    card, one on the CPU)."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=2048)
+    ap.add_argument("--rhs", type=int, default=8)
+    ap.add_argument("--row-nnz", type=int, default=16)
+    ap.add_argument("--offdiag", type=float, default=0.9)
+    ap.add_argument("--sweeps", type=int, default=10)
+    ap.add_argument("--format", choices=FORMAT_CHOICES, default="dense",
+                    help="operator format of the sequential pass")
+    ap.add_argument("--ell-width", type=int, default=64)
+    ap.add_argument("--storage-dtype", choices=STORAGE_DTYPES, default=None,
+                    help="precision the operator's coefficients are stored "
+                         "in (row norms, iterate and accumulation stay "
+                         "f32); default keeps the input dtype bitwise")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="workers of the schedule whose staleness the "
+                         "theory line assumes (0 = all local devices)")
+    ap.add_argument("--local-steps", type=int, default=0,
+                    help="async steps between synchronizations "
+                         "(0 -> one sweep split evenly)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the problem and the solves live (cuda "
+                         "raises without a card; cpu runs the kernels' "
+                         "plain versions)")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+
+    prob = random_sparse_spd(args.n, row_nnz=args.row_nnz,
+                             offdiag=args.offdiag, n_rhs=args.rhs,
+                             seed=args.seed, device=device)
+    if args.format == "ell":
+        # A width below the largest row occupancy silently solves a
+        # truncated system; widen to keep the ELL operator exact.
+        max_nnz = int((prob.A != 0).sum(1).max())
+        if args.ell_width < max_nnz:
+            print(f"  [warn] --ell-width {args.ell_width} < max nnz/row "
+                  f"{max_nnz}; widening to keep the operator exact")
+            args.ell_width = max_nnz
+    x0 = torch.zeros_like(prob.x_star)
+    rho = float(theory.rho(prob.A))
+    n = prob.n
+    kappa = float(prob.kappa)
+    print(f"[solve] n={n} rhs={args.rhs} kappa={kappa:.1f} rho={rho:.4f} "
+          f"format={args.format}")
+
+    iters = args.sweeps * n
+    wait(device)
+    t0 = time.perf_counter()
+    res = solve(prob, generator=torch.Generator(device).manual_seed(1),
+                format=args.format, width=args.ell_width,
+                storage_dtype=args.storage_dtype,
+                schedule=Schedule(num_iters=iters, record_every=n))
+    wait(device)
+    print(f"  sync RGS   : {args.sweeps} sweeps, resid "
+          f"{float(res.resid[-1, 0]):.3e} ({time.perf_counter() - t0:.3f}s)")
+
+    wait(device)
+    t0 = time.perf_counter()
+    cres = cg_solve(prob.A, prob.b, x0, prob.x_star, num_iters=args.sweeps)
+    wait(device)
+    print(f"  CG         : {args.sweeps} iters, resid "
+          f"{float(cres.resid[-1, 0]):.3e} ({time.perf_counter() - t0:.3f}s)")
+
+    workers = args.workers or default_workers(device)
+    local_steps = args.local_steps or max(1, n // workers)
+    tau = scheduled_tau(workers, local_steps)
+    beta = theory.beta_opt(rho, tau)
+    nu = theory.nu_tau(rho, tau, beta)
+    print(f"  theory     : P={workers} tau={tau} beta~={beta:.3f} "
+          f"nu_tau(beta~)={nu:.3f} epoch factor <= "
+          f"{theory.thm41a_factor(rho, tau, kappa, beta):.5f}")
+    return {"problem": prob, "sync": res, "cg": cres, "rho": rho, "tau": tau,
+            "beta": beta}
+
+
+if __name__ == "__main__":
+    main()

@@ -62,3 +62,16 @@ def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     out = _run_smoke(tmp_path)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+ITEM6 = ("theory", "cg_solve", "fcg_solve", "make_rgs_preconditioner",
+         "random_lsq", "rk_solve", "async_rk_solve", "async_rgs_solve",
+         "rgs_general", "solve_async_sim")
+
+
+@pytest.mark.parametrize("name", ITEM6)
+def test_port_exports_the_simulator_theory_and_baselines(name):
+    import repro_torch
+    from repro_torch import core
+    assert name in repro_torch.__all__ and name in core.__all__
+    assert getattr(repro_torch, name) is getattr(core, name)

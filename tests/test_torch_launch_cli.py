@@ -1,0 +1,115 @@
+"""The port's sequential CLIs (``python -m repro_torch.launch.solve`` and
+``...launch.lsq``) on the CPU at small sizes: every pass's line is
+printed, residuals are finite and below their start, beta~ and the rate
+factors lie in (0, 1]; both default to the card and raise without one;
+``launch.serve`` takes its ``--format`` choices from ``launch.solve``.
+"""
+import os
+import re
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.launch import lsq, serve, solve  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+NUM = r"(-?[0-9.]+(?:e[-+][0-9]+)?)"
+
+
+def _line(text, prefix):
+    lines = [ln for ln in text.splitlines() if ln.strip().startswith(prefix)]
+    assert len(lines) == 1, (prefix, text)
+    return lines[0]
+
+
+def _number(line, pattern):
+    m = re.search(pattern + NUM, line)
+    assert m, (pattern, line)
+    return float(m.group(1))
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr", "ell"])
+def test_solve_cli(capsys, fmt):
+    out = solve.main(["--device", "cpu", "--n", "128", "--rhs", "3",
+                      "--sweeps", "4", "--format", fmt, "--ell-width", "4"])
+    text = capsys.readouterr().out
+    assert _line(text, "[solve]").endswith(f"format={fmt}")
+    b0 = float(torch.linalg.vector_norm(out["problem"].b[:, 0]))
+    for prefix in ("sync RGS", "CG"):
+        r = _number(_line(text, prefix), r"resid ")
+        assert 0 <= r < b0
+    theory = _line(text, "theory")
+    assert 0 < _number(theory, r"beta~=") <= 1
+    assert 0 < _number(theory, r"epoch factor <= ") <= 1
+    assert _number(theory, r"tau=") == 0 == out["tau"]   # P = 1 on the CPU
+    assert ("[warn] --ell-width 4" in text) == (fmt == "ell")
+    res = out["sync"]
+    assert res.resid.shape == (4, 3) and bool(torch.isfinite(res.resid).all())
+    assert bool((res.resid[1:] <= res.resid[:-1]).all())
+
+
+def test_solve_cli_theory_follows_workers(capsys):
+    out = solve.main(["--device", "cpu", "--n", "128", "--rhs", "1",
+                      "--sweeps", "1", "--workers", "4", "--local-steps",
+                      "8"])
+    theory = _line(capsys.readouterr().out, "theory")
+    assert out["tau"] == 24 and "P=4 tau=24" in theory
+    assert 0 < out["beta"] < 1
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+def test_lsq_cli(capsys, fmt):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = lsq.main(["--device", "cpu", "--m", "256", "--n", "32",
+                        "--rhs", "2", "--sweeps", "2", "--tau", "8",
+                        "--format", fmt])
+    text = capsys.readouterr().out
+    # the async pass densifies a CSR operator exactly, and says so
+    assert any("densifies CsrOp exactly" in str(w.message)
+               for w in caught) == (fmt == "csr")
+    assert "optimum relresid=" in _line(text, "[lsq]")
+    for prefix in ("seq RK", "async RK", "CG (A^T A)"):
+        r = _number(_line(text, prefix), r"relresid ")
+        assert 0 <= r < 1
+    assert 0 < _number(_line(text, "async RK"), r"beta~=") <= 1
+    theory = _line(text, "theory")
+    assert 0 < _number(theory, r"sync=") <= 1
+    assert 0 < _number(theory, r"async\(tau=8\)=") <= 1
+    assert out["async"].resid.shape == (2, 2)
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("repro_torch.launch.solve", ["--n", "64", "--rhs", "2", "--sweeps", "2",
+                                  "--format", "csr"]),
+    ("repro_torch.launch.lsq", ["--m", "128", "--n", "16", "--rhs", "2",
+                                "--sweeps", "1", "--tau", "4"])])
+def test_cli_as_module(module, argv):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", module, *argv, "--device",
+                          "cpu"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "theory" in out.stdout and "nan" not in out.stdout
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (solve, ["--n", "32", "--sweeps", "1"]),
+    (lsq, ["--m", "32", "--n", "8", "--sweeps", "1"])])
+def test_clis_default_to_the_card(cli, argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would use it")
+    with pytest.raises((RuntimeError, AssertionError)):
+        cli.main(argv)
+
+
+def test_serve_takes_format_choices_from_solve():
+    assert serve.FORMAT_CHOICES is solve.FORMAT_CHOICES
+    assert solve.FORMAT_CHOICES == ("dense", "ell", "csr")
+    with pytest.raises(SystemExit):
+        serve.main(["--format", "banded", "--device", "cpu"])
