@@ -15,11 +15,17 @@ gs_block=128``); randomized Kaczmarz on ``random_sparse_lsq(32768, 4096)``
 through CSR.  It drives the CSR matvec seam (``CsrOp.matvec(variant=)``
 for all four variants, ``matvec_segsum``), runs the autotuner CLI in a
 child process and a CSR solve under the table it wrote.  It drives the
-distributed Kaczmarz engine (``solve`` with
-``Schedule(rounds=, local_steps=)`` and a process group; one local-phase
-launch per round) at P = 1 in this process on the LSQ problem (CSR) and
-the banded problem, and at P = 4 in four spawned processes that share the
-card through a gloo group.  It drives the serving path
+distributed engine (``solve`` with ``Schedule(rounds=, local_steps=)`` and
+a process group; one local-phase launch per round and rank): Kaczmarz on
+the LSQ problem (CSR) and the banded problem, and Gauss-Seidel under
+every strategy (``sparse_gs`` on the SPD problem in CSR and ELL,
+``banded_gs``, ``halo_gs`` and ``dense_gs`` at ``gs_block=128`` on the
+banded problem) at P = 1 in this process, and at P = 4 in four spawned
+processes that share the card through a gloo group (``sparse_gs`` by
+``sync="auto"``, and under the neighbor exchange and the all-gather on
+``laplacian_spd(128)``, bitwise equal; ``halo_gs`` bitwise
+``banded_gs``), and asks whether gloo's point-to-point takes CUDA
+tensors.  It drives the serving path
 (``repro_torch.serve.SolverService`` over the CSR GS and RK problems,
 ``solve_batched`` and ``sequential_chunk``: tenants batched onto one
 launch per chunk, padded columns bitwise their solo solves, early exits,
@@ -139,7 +145,10 @@ BANDED_MANY_BANDS_KS = (3, 1)
 # (two column tiles, the second ragged at 70); n = 3002 (rows of A that
 # are no multiple of 16 bytes, staged element by element); block 256 at
 # n = 16384 (four units a CTA, whose x tiles do not all fit: reloaded at
-# each step).  f32 and bf16 A.
+# each step); block 1 (coordinate GS: the dense distributed pass of
+# launch.solve at its default gs_block); a stream of one rank's quarter
+# of the blocks at n = 16384 (dense_gs at P = 4: its picks touch a quarter
+# of the units).  f32 and bf16 A.
 BGS_CASES = (
     (2048, 64, "random", (51, 3, 1), None),
     (2048, 96, "random", (51, 3, 1), None),
@@ -154,6 +163,8 @@ BGS_CASES = (
     (16384, 256, "random", (51, 1), "x tiles reloaded"),
     (16384, 128, "repeat", (51, 1), "two units a CTA"),
     (16384, 128, "alternate", (51, 1), "two units a CTA"),
+    (2048, 1, "random", (3, 1), None),
+    (16384, 128, "slab", (51, 1), "two units a CTA"),
 )
 BGS_STREAM_STEPS = 40
 # The two row-window matvecs (csrc/common.cuh rw_kernel: spmv_csr_sliced
@@ -185,6 +196,23 @@ P4 = 4
 P4_SPARSE_ROUNDS, P4_SPARSE_STEPS, P4_SPARSE_BETA = 64, 512, 0.9
 P4_BANDED_ROUNDS, P4_BANDED_STEPS = 60, 32
 P4_FALL, P4_REL = 1e-2, 1e-2  # residual falls 100-fold; final rel < 1e-2
+# The distributed GS engine.  P = 1 in this process at full width:
+# sparse_gs on the SPD problem (CSR and ELL), DIST_GS_ROUNDS rounds of
+# SPD_N local steps; banded_gs, halo_gs and dense_gs (gs_block BLOCK) on
+# the banded problem, DIST_BANDED_GS_ROUNDS rounds of nb.  P = 4 in four
+# processes sharing the card (seed P4_GS_SEED: banded_gs, halo_gs and
+# dense_gs draw the same block picks, a2a and the all-gather the same
+# rows): sparse_gs by sync="auto" on the SPD problem in CSR (its neighbor
+# graph is dense, so a2a falls back to the all-gather),
+# P4_SPARSE_GS_ROUNDS rounds of a slab's rows; a2a and the all-gather on
+# laplacian_spd(FCG_SIDE) in CSR (each slab reads its neighbours': two
+# rotations), P4_LAP_ROUNDS rounds; banded_gs, halo_gs and dense_gs,
+# P4_BANDED_GS_ROUNDS rounds of a slab's block rows.  beta 1.  A CPU
+# rehearsal at n = 2048, P = 4 fell 216-fold in 10 sparse rounds and
+# 790-fold in 4 banded ones.
+DIST_GS_ROUNDS, DIST_BANDED_GS_ROUNDS = 3, 10
+P4_SPARSE_GS_ROUNDS, P4_LAP_ROUNDS, P4_BANDED_GS_ROUNDS = 16, 4, 12
+P4_GS_SEED = SEED + 22
 # The serving phase (serving_phase): the main SPD problem served by GS and
 # the main LSQ design by RK, both on CSR, in chunks of SERVE_REC picks, at
 # most 32 sweeps (GS: rtol 1e-3 needs about 10-18 at lam in [0.79, 1.21])
@@ -304,51 +332,104 @@ def rel(a, b) -> float:
     return float((a - b).double().norm() / (b.double().norm() + 1e-300))
 
 
+def gloo_p2p_probe(group, device):
+    """Rank 0 sends a tensor on ``device`` to rank 1 by
+    ``batch_isend_irecv`` (run in two spawned processes): whether gloo's
+    point-to-point takes it.  Each rank returns (ok, its error); rank 0's
+    is the sender's.  The engine stages such payloads through pinned host
+    buffers either way (``core/distributed.py::_P2P``)."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank(group)
+    t = torch.arange(6, dtype=torch.float32, device=device)
+    got = torch.full_like(t, -1.0)
+    op = (dist.P2POp(dist.isend, t, 1, group) if rank == 0
+          else dist.P2POp(dist.irecv, got, 0, group))
+    try:
+        for req in dist.batch_isend_irecv([op]):
+            req.wait()
+    except RuntimeError as err:
+        return False, str(err).strip()
+    return rank == 0 or torch.equal(got.cpu(), torch.arange(6.)), ""
+
+
 def p4_rank(group, device, path):
     """One rank of the P = 4 phase (run in a spawned process): rebuild the
-    CSR and banded operators from the arrays the parent saved, run both
-    distributed Kaczmarz strategies with the launch counters set to 0
-    just before each, and gather every rank's counts and wall time."""
+    operators from the arrays the parent saved (CSR: the LSQ design, the
+    SPD problem, the Laplacian; the band tiles, and the dense matrix from
+    them), run the distributed Kaczmarz and GS strategies with the launch
+    counters set to 0 just before each, and gather every rank's counts,
+    wall time and a SHA-256 of its returned x."""
+    import hashlib
+
     import torch
     import torch.distributed as dist
 
     from repro_torch import convert
     from repro_torch.core.distributed import solve_distributed
+    from repro_torch.core.operators import DenseOp
     from repro_torch.kernels import ops
     data = torch.load(path)
-    csr = convert.csr_from_arrays(
-        *(data[f].numpy() for f in ("data", "indices", "row_id", "row_start",
-                                    "row_nnz")), device=device,
-        **data["layout"])
+
+    def csr(name):
+        return convert.csr_from_arrays(
+            *(data[f"{name}_{f}"].numpy() for f in (
+                "data", "indices", "row_id", "row_start", "row_nnz")),
+            device=device, **data[f"{name}_layout"])
+
     band = convert.banded_from_arrays(data["tiles"].numpy(), BANDS,
                                       device=device)
+    spd_csr, lap_csr = csr("spd"), csr("lap")
+    nb4 = band.nb // dist.get_world_size(group)
+    slab = data["spd_b"].shape[0] // dist.get_world_size(group)
+    gs = dict(action="gs", seed=P4_GS_SEED)
+    runs = (
+        ("sparse_rk", csr("lsq"), "lsq",
+         dict(action="rk", sync="psum", seed=SEED + 21,
+              rounds=P4_SPARSE_ROUNDS, local_steps=P4_SPARSE_STEPS,
+              beta=P4_SPARSE_BETA)),
+        ("banded_rk", band, "band",
+         dict(action="rk", sync="psum", seed=SEED + 21,
+              rounds=P4_BANDED_ROUNDS, local_steps=P4_BANDED_STEPS,
+              beta=BANDED_RK_BETA)),
+        ("sparse_gs", spd_csr, "spd",
+         dict(gs, sync="auto", rounds=P4_SPARSE_GS_ROUNDS,
+              local_steps=slab)),
+        ("sparse_gs a2a", lap_csr, "lap",
+         dict(gs, sync="a2a", rounds=P4_LAP_ROUNDS, local_steps=slab)),
+        ("sparse_gs allgather", lap_csr, "lap",
+         dict(gs, sync="allgather", rounds=P4_LAP_ROUNDS, local_steps=slab)),
+        ("banded_gs", band, "band",
+         dict(gs, sync="allgather", rounds=P4_BANDED_GS_ROUNDS,
+              local_steps=nb4)),
+        ("halo_gs", band, "band",
+         dict(gs, sync="halo", rounds=P4_BANDED_GS_ROUNDS, local_steps=nb4)),
+        ("dense_gs", DenseOp(band.to_dense()), "band",
+         dict(gs, sync="allgather", block=BLOCK, rounds=P4_BANDED_GS_ROUNDS,
+              local_steps=nb4)))
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     out = {}
-    for kind, op, b, xs, kw in (
-            ("sparse_rk", csr, data["lsq_b"], data["lsq_x_star"],
-             dict(rounds=P4_SPARSE_ROUNDS, local_steps=P4_SPARSE_STEPS,
-                  beta=P4_SPARSE_BETA)),
-            ("banded_rk", band, data["band_b"], data["band_x_star"],
-             dict(rounds=P4_BANDED_ROUNDS, local_steps=P4_BANDED_STEPS,
-                  beta=BANDED_RK_BETA))):
-        b, xs = b.to(device), xs.to(device)
+    for tag, op, prob, kw in runs:
+        b = data[f"{prob}_b"].to(device)
+        xs = data[f"{prob}_x_star"].to(device)
         sync()
         dist.barrier(group)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = solve_distributed(op, b, torch.zeros_like(xs), xs,
-                                action="rk", group=group, sync="psum",
-                                seed=SEED + 21, **kw)
+        res = solve_distributed(op, b, torch.zeros_like(xs), xs, group=group,
+                                **kw)
         sync()
         wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        digest = hashlib.sha256(res.x.cpu().numpy().tobytes()).hexdigest()
         ranks = [None] * dist.get_world_size(group)
-        dist.all_gather_object(ranks, (ops.launch_counts(), wall), group=group)
-        out[kind] = dict(x=res.x.cpu(), resid=res.resid.cpu(), tau=res.tau,
-                         bytes_per_round=res.bytes_per_round, ranks=ranks)
+        dist.all_gather_object(ranks, (counts, wall, digest), group=group)
+        out[tag] = dict(x=res.x.cpu(), resid=res.resid.cpu(), tau=res.tau,
+                        bytes_per_round=res.bytes_per_round, ranks=ranks)
     return out
 
 
@@ -690,6 +771,10 @@ def block_gs_beyond_main(torch, ops, launcher, ref, gen, dev) -> None:
         elif stream == "repeat":
             picks = torch.full((BGS_STREAM_STEPS,), 3, dtype=torch.int32,
                                device=dev)
+        elif stream == "slab":   # rank 2 of 4's blocks, as dense_gs draws
+            q = nb // P4
+            picks = torch.randint(2 * q, 3 * q, (2 * q,), generator=gen,
+                                  device=dev, dtype=torch.int32)
         else:  # blocks 4 and 5: rows 512 ... 767, both in slice 2
             picks = torch.tensor([4, 5] * (BGS_STREAM_STEPS // 2),
                                  dtype=torch.int32, device=dev)
@@ -1171,8 +1256,12 @@ def sequential_cli_phase(torch, ops, lsq, launches) -> None:
     children = {
         "launch.solve --format ell": ("repro_torch.launch.solve",
                                       ["--format", "ell"],
-                                      ("[solve]", "sync RGS", "CG",
-                                       "theory")),
+                                      ("[solve]", "sync RGS", "async RGS",
+                                       "CG", "theory")),
+        f"launch.solve --sync auto --workers {P4}": (
+            "repro_torch.launch.solve", ["--sync", "auto", "--workers",
+                                         str(P4)],
+            ("[solve]", "sync RGS", "async RGS", "CG", "theory")),
         "launch.lsq --format dense": ("repro_torch.launch.lsq",
                                       ["--format", "dense"],
                                       ("[lsq]", "seq RK", "async RK",
@@ -1249,36 +1338,54 @@ def sequential_cli_phase(torch, ops, lsq, launches) -> None:
         check(proc.returncode == 0 and all(said.values()) and finite,
               f"(b) python -m repro_torch.{what} exited 0 with its lines "
               f"{', '.join(prefixes)}, every number finite")
+        if "async RGS" not in said:
+            continue
+        workers = P4 if "--workers" in children[what][1] else 1
+        asy = said["async RGS"]
+        check(asy.get("P") == workers
+              and asy.get("tau") == (workers - 1) * (2048 // workers),
+              f"(b) {what}: the distributed pass ran on {workers} "
+              f"rank(s), tau {asy.get('tau')}, resid {asy['resid']:.3e} "
+              f"({asy.get('s')} s a rank; the ranks time-slice one card)")
     print(f"  (b) both children and the simulator's CPU runs: "
           f"{time.perf_counter() - t_children:.2f} s", flush=True)
 
     # (a) launch.solve in process: GS_SWEEPS sweeps (one sweep_rows_gs
-    # launch each), a record a sweep (two CSR matvecs, two colsum), then
-    # CG (its dots and records through colsum: 1 + 4 an iteration).
+    # launch each), a record a sweep (two CSR matvecs, two colsum); its
+    # distributed pass on the one card, P = 1 in process: sparse_gs, a
+    # round a sweep (one sweep_rows_gs, two spmv_ell, two colsum); then CG
+    # (its dots and records through colsum: 1 + 4 an iteration).
     argv = ("--format", "csr", "--n", str(SPD_N), "--rhs", str(K),
             "--sweeps", str(GS_SWEEPS))
     (res, text, _), wall = counted(
         f"(a) launch.solve {' '.join(argv)}",
-        {"sweep_rows_gs": GS_SWEEPS, "spmv_csr_sliced": 2 * GS_SWEEPS,
-         "colsum": 2 * GS_SWEEPS + 1 + 4 * GS_SWEEPS},
+        {"sweep_rows_gs": 2 * GS_SWEEPS, "spmv_csr_sliced": 2 * GS_SWEEPS,
+         "spmv_ell": 2 * GS_SWEEPS,
+         "colsum": 4 * GS_SWEEPS + 1 + 4 * GS_SWEEPS},
         lambda: in_process(solve_cli, argv))
-    sync, cgl, th = (cli_numbers(text, p) for p in ("sync RGS", "CG",
-                                                    "theory"))
+    sync, asy, cgl, th = (cli_numbers(text, p) for p in (
+        "sync RGS", "async RGS", "CG", "theory"))
     b0 = float(torch.linalg.vector_norm(res["problem"].b[:, 0]))
     check(all(math.isfinite(d.get("resid", math.nan)) and d["resid"] < b0
-              for d in (sync, cgl))
+              for d in (sync, asy, cgl))
           and bool(torch.isfinite(res["sync"].resid).all())
+          and bool(torch.isfinite(res["async"].resid).all())
           and bool(torch.isfinite(res["cg"].resid).all()),
           f"(a) launch.solve: resid finite and below ||b[:, 0]|| = {b0:.4g} "
-          f"(sync RGS {sync.get('resid')}, CG {cgl.get('resid')})")
+          f"(sync RGS {sync.get('resid')}, async RGS {asy.get('resid')}, CG "
+          f"{cgl.get('resid')})")
+    check(asy.get("P") == 1 and asy.get("tau") == 0
+          and res["async"].bytes_per_round == 0.0,
+          f"(a) launch.solve: the distributed pass at P = 1 on the one card "
+          f"(tau {asy.get('tau')}, no exchange)")
     check(unit(th.get("beta~", 0)) and unit(th.get("nu_tau(beta~)", 0))
           and unit(th.get("factor", 0)),
           f"(a) launch.solve: 0 < beta~ = {th.get('beta~')} <= 1, rate "
           f"factors nu_tau(beta~) = {th.get('nu_tau(beta~)')} and epoch "
           f"factor {th.get('factor')} in (0, 1]")
-    print(f"  (a) launch.solve wall s: sync RGS {sync.get('s')}, CG "
-          f"{cgl.get('s')}, the whole call {wall:.3f} (problem build "
-          "included)", flush=True)
+    print(f"  (a) launch.solve wall s: sync RGS {sync.get('s')}, async RGS "
+          f"(P = 1) {asy.get('s')}, CG {cgl.get('s')}, the whole call "
+          f"{wall:.3f} (problem build included)", flush=True)
 
     # launch.lsq in process: one sweep_rows_rk launch a sweep, a record a
     # sweep (one CSR matvec, two colsum); the async pass densifies (with
@@ -1494,7 +1601,8 @@ def main() -> int:
                                  block_banded_spd, laplacian_spd,
                                  random_sparse_lsq, random_sparse_spd, solve)
         from repro_torch.core import ell_from_dense
-        from repro_torch.core.distributed import _sync_bytes_per_round
+        from repro_torch.core.distributed import (_a2a_plan,
+                                                  _sync_bytes_per_round)
         from repro_torch.core.engine import (draw_picks, record_metrics,
                                              sample_rows, scheduled_tau)
         from repro_torch.core.operators import (DENSE_MATVEC_COLUMNS,
@@ -1923,6 +2031,35 @@ def main() -> int:
           f"sweep_rows_gs main-path chunk ({SPD_N} picks, k={K}): the global "
           "path and the shared-memory path agree bitwise")
     del runs
+    # A distributed rank's local phase: the sweep over rank 2's slab of
+    # the P = 4 partition (its rows of the windows and of b), writing at
+    # write_base = 2 * slab of the full-length x: on both paths bitwise on
+    # a whole slab of picks, against the plain version on a prefix, every
+    # row outside the slab untouched.
+    slab4 = SPD_N // P4
+    w0 = 2 * slab4
+    rank_rows = slice(w0, w0 + slab4)
+    args = (vals[rank_rows], cols[rank_rows], spd.b[rank_rows], x_spd)
+    picks_s = torch.randint(0, slab4, (slab4,), generator=gen_gs,
+                            device=dev, dtype=torch.int32)
+    runs = [sweep_csr.sweep_rows_gs(*args, picks_s, beta=0.9, write_base=w0,
+                                    limit=slab4, _shared=shared)
+            for shared in (False, True)]
+    got = ops.sweep_rows_gs(*args, picks_s[:PREFIX], beta=0.9,
+                            write_base=w0)
+    want = ref.sweep_rows_gs_ref(*args, picks_s[:PREFIX], beta=0.9,
+                                 write_base=w0)
+    torch.cuda.synchronize()
+    e = rel(got, want)
+    check(torch.equal(*runs) and e <= SWEEP_RTOL
+          and all(torch.equal(r[:w0], x_spd[:w0])
+                  and torch.equal(r[w0 + slab4:], x_spd[w0 + slab4:])
+                  for r in (*runs, got)),
+          f"sweep_rows_gs at write_base={w0} (rank 2 of {P4}'s slab, "
+          f"{slab4} picks, k={K}): the two paths bitwise, rel err {e:.3e} <= "
+          f"{SWEEP_RTOL:g} against the plain version on {PREFIX} picks, the "
+          "rows outside the slab untouched")
+    del runs, got, want
 
     # The two RK sweeps' paths, as the GS sweep's: the main path's n =
     # LSQ_N takes the shared-memory path at one carry and at two (so the
@@ -2632,6 +2769,52 @@ def main() -> int:
                                   seed=SEED + 12,
                                   schedule=Schedule(rounds=BANDED_RK_ROUNDS,
                                                     local_steps=nb)))
+        # The distributed GS engine at P = 1: one local-phase launch a
+        # round, then the records: sparse_gs two spmv_ell (A x and A e of
+        # the rank's rows) and two colsum; banded_gs one bbmv a round and
+        # one for b - A x* once; halo_gs two bbmv; dense_gs two matmuls
+        # (no kernel); every one two colsum.  Each GS path alone at k = 1
+        # too (the same seed, so the same picks).
+        gs_paths = {
+            "sparse_gs on CSR": (
+                spd, "sparse_gs", SPD_N, DIST_GS_ROUNDS,
+                dict(sweep_rows_gs=DIST_GS_ROUNDS,
+                     spmv_ell=2 * DIST_GS_ROUNDS, colsum=2 * DIST_GS_ROUNDS),
+                dict(format="csr")),
+            "sparse_gs on ELL": (
+                spd, "sparse_gs", SPD_N, DIST_GS_ROUNDS,
+                dict(sweep_rows_gs=DIST_GS_ROUNDS,
+                     spmv_ell=2 * DIST_GS_ROUNDS, colsum=2 * DIST_GS_ROUNDS),
+                dict(format="ell")),
+            "banded_gs": (
+                banded, "banded_gs", nb, DIST_BANDED_GS_ROUNDS,
+                dict(banded_gs_sweep=DIST_BANDED_GS_ROUNDS,
+                     bbmv=DIST_BANDED_GS_ROUNDS + 1,
+                     colsum=2 * DIST_BANDED_GS_ROUNDS),
+                dict(format="banded", block=BLOCK, bands=BANDS,
+                     sync="allgather")),
+            "halo_gs": (
+                banded, "halo_gs", nb, DIST_BANDED_GS_ROUNDS,
+                dict(banded_gs_sweep=DIST_BANDED_GS_ROUNDS,
+                     bbmv=2 * DIST_BANDED_GS_ROUNDS,
+                     colsum=2 * DIST_BANDED_GS_ROUNDS),
+                dict(format="banded", block=BLOCK, bands=BANDS)),
+            f"dense_gs (gs_block {BLOCK})": (
+                banded, "dense_gs", nb, DIST_BANDED_GS_ROUNDS,
+                dict(block_gs_sweep=DIST_BANDED_GS_ROUNDS,
+                     colsum=2 * DIST_BANDED_GS_ROUNDS),
+                dict(format="dense", gs_block=BLOCK))}
+        dgs = {}
+        for name, (prob, kind, steps, rounds, expect, kw) in \
+                gs_paths.items():
+            kw = dict(kw, group=pg, seed=SEED + 13,
+                      schedule=Schedule(rounds=rounds, local_steps=steps))
+            tag = (f"distributed {name}, P = 1, {rounds} rounds of {steps} "
+                   "local steps")
+            dgs[name] = drive(tag, expect,
+                              functools.partial(solve, prob, **kw))
+            solos[f"distributed {name}, P = 1"] = (dgs[name],
+                                                   alone(prob, **kw))
     print(f"  launches on the main paths, all together: {launches}",
           flush=True)
     fields = ("x", "err_sq", "resid")
@@ -2701,13 +2884,19 @@ def main() -> int:
              (lsq_holes.x_star ** 2).sum(0))
     dense_resid("RK, empty-panel design", lsq_holes, rkh)
 
-    def schedule_numbers(tag, res, kind, steps, workers):
+    def schedule_numbers(tag, res, kind, steps, workers, sync="psum",
+                         a2a_schedule=()):
         """tau and bytes_per_round of a result (a dict) are those of its
         schedule."""
-        tau = scheduled_tau(workers, steps, shared_stream=True,
-                            local_sampling=kind == "sparse_rk")
+        if kind.endswith("_gs"):
+            tau = scheduled_tau(workers, steps)
+        else:
+            tau = scheduled_tau(workers, steps, shared_stream=True,
+                                local_sampling=kind == "sparse_rk")
         nbytes = _sync_bytes_per_round(kind, n=res["x"].shape[0], k=K,
-                                       num_workers=workers)
+                                       num_workers=workers, sync=sync,
+                                       halo=BANDS * BLOCK,
+                                       a2a_schedule=a2a_schedule)
         check(res["tau"] == tau and res["bytes_per_round"] == nbytes,
               f"{tag}: tau {res['tau']} and bytes per round "
               f"{res['bytes_per_round']:g} are scheduled_tau and "
@@ -2715,7 +2904,9 @@ def main() -> int:
 
     for tag, prob, res, kind, steps in (
             ("distributed RK on CSR, P = 1", lsq, drk, "sparse_rk", LSQ_M),
-            ("distributed banded RK, P = 1", banded, dbk, "banded_rk", nb)):
+            ("distributed banded RK, P = 1", banded, dbk, "banded_rk", nb),
+            *((f"distributed {name}, P = 1", prob, dgs[name], kind, steps)
+              for name, (prob, kind, steps, *_) in gs_paths.items())):
         check(res.x.shape == prob.x_star.shape
               and bool(torch.isfinite(res.x).all()),
               f"{tag}: iterate finite, shape {tuple(res.x.shape)}")
@@ -2724,59 +2915,154 @@ def main() -> int:
               + ", ".join(f"{v:.4g}" for v in res.resid[:, 0].tolist()) + ")")
         dense_resid(tag, prob, res)
         schedule_numbers(tag, res._asdict(), kind, steps, 1)
+    # the same picks in pairs: CSR and ELL sum each row window in other
+    # orders; halo_gs's window is banded_gs's replica's; dense_gs sums the
+    # same block-row products in another order
+    e = rel(dgs["sparse_gs on ELL"].x, dgs["sparse_gs on CSR"].x)
+    check(e <= SWEEP_RTOL, f"distributed sparse_gs at P = 1, ELL and CSR, "
+          f"same picks: rel err of x {e:.3e} <= {SWEEP_RTOL:g}")
+    check(torch.equal(dgs["halo_gs"].x, dgs["banded_gs"].x),
+          "distributed halo_gs at P = 1: x bitwise banded_gs's, same picks")
+    e = rel(dgs[f"dense_gs (gs_block {BLOCK})"].x, dgs["banded_gs"].x)
+    check(e <= SWEEP_RTOL, f"distributed dense_gs and banded_gs at P = 1, "
+          f"same picks: rel err of x {e:.3e} <= {SWEEP_RTOL:g}")
 
     print(f"== P = {P4}: {P4} processes sharing the card, gloo over CUDA "
           "tensors", flush=True)
     # The problems are built once, here; the ranks rebuild the operators
     # from their arrays (convert.csr_from_arrays / banded_from_arrays).
-    csr = ops_by[("lsq", None)]
+    t0 = time.perf_counter()
+    lap = laplacian_spd(FCG_SIDE, n_rhs=K, seed=SEED)
+    lap_csr = as_operator(lap.A, "csr")
+    lap = lap._replace(A=None)
+    print(f"  laplacian_spd({FCG_SIDE}) and its CSR: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def csr_arrays(name, op):
+        return {f"{name}_{f}": getattr(op, f).cpu() for f in (
+            "data", "indices", "row_id", "row_start", "row_nnz")} | {
+            f"{name}_layout": dict(
+                shape=op.shape, nnz=op.nnz, row_cap=op.row_cap,
+                rows_per_panel=op.rows_per_panel,
+                panel_width=op.panel_width)}
+
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "p4.pt")
         torch.save(dict(
-            data=csr.data.cpu(), indices=csr.indices.cpu(),
-            row_id=csr.row_id.cpu(), row_start=csr.row_start.cpu(),
-            row_nnz=csr.row_nnz.cpu(),
-            layout=dict(shape=csr.shape, nnz=csr.nnz, row_cap=csr.row_cap,
-                        rows_per_panel=csr.rows_per_panel,
-                        panel_width=csr.panel_width),
+            **csr_arrays("lsq", ops_by[("lsq", None)]),
+            **csr_arrays("spd", ops_by[("spd", None)]),
+            **csr_arrays("lap", lap_csr),
             tiles=ops_by[("banded", None)].A_bands.cpu(),
             lsq_b=lsq.b.cpu(), lsq_x_star=lsq.x_star.cpu(),
+            spd_b=spd.b.cpu(), spd_x_star=spd.x_star.cpu(),
+            lap_b=lap.b.cpu(), lap_x_star=lap.x_star.cpu(),
             band_b=banded.b.cpu(), band_x_star=banded.x_star.cpu()), path)
         t0 = time.perf_counter()
         p4 = run_workers(p4_rank, P4, path, backend="gloo", device="cuda",
-                         timeout=600)
+                         timeout=900)
         p4_wall = time.perf_counter() - t0
     print(f"  {P4} ranks spawned, run and joined in {p4_wall:.2f} s wall",
           flush=True)
-    for kind, prob, rounds, steps, expect in (
-            ("sparse_rk", lsq, P4_SPARSE_ROUNDS, P4_SPARSE_STEPS,
-             dict(sweep_rows_rk_delta=P4_SPARSE_ROUNDS,
-                  spmv_ell=P4_SPARSE_ROUNDS, colsum=2 * P4_SPARSE_ROUNDS)),
-            ("banded_rk", banded, P4_BANDED_ROUNDS, P4_BANDED_STEPS,
-             dict(banded_rk_sweep=P4_BANDED_ROUNDS, bbmv=P4_BANDED_ROUNDS,
-                  colsum=2 * P4_BANDED_ROUNDS))):
-        tag = f"P = {P4} {kind}, {rounds} rounds of {steps} local steps"
-        res = p4[kind]
+    slab4, nb4 = SPD_N // P4, nb // P4
+    gs_counts = {
+        "sparse": lambda r: dict(sweep_rows_gs=r, spmv_ell=2 * r,
+                                 colsum=2 * r),
+        "banded_gs": lambda r: dict(banded_gs_sweep=r, bbmv=r + 1,
+                                    colsum=2 * r),
+        "halo_gs": lambda r: dict(banded_gs_sweep=r, bbmv=2 * r,
+                                  colsum=2 * r),
+        "dense_gs": lambda r: dict(block_gs_sweep=r, colsum=2 * r)}
+    lap_plan, _ = _a2a_plan(lap_csr.slab_neighbors(P4), P4)
+    # (tag, strategy, sync as resolved, problem, rounds, steps, launches,
+    # whether the residual must fall P4_FALL-fold to P4_REL)
+    p4_runs = (
+        ("sparse_rk", "sparse_rk", "psum", lsq, P4_SPARSE_ROUNDS,
+         P4_SPARSE_STEPS,
+         dict(sweep_rows_rk_delta=P4_SPARSE_ROUNDS,
+              spmv_ell=P4_SPARSE_ROUNDS, colsum=2 * P4_SPARSE_ROUNDS), True),
+        ("banded_rk", "banded_rk", "psum", banded, P4_BANDED_ROUNDS,
+         P4_BANDED_STEPS,
+         dict(banded_rk_sweep=P4_BANDED_ROUNDS, bbmv=P4_BANDED_ROUNDS,
+              colsum=2 * P4_BANDED_ROUNDS), True),
+        ("sparse_gs", "sparse_gs", "allgather", spd, P4_SPARSE_GS_ROUNDS,
+         slab4, gs_counts["sparse"](P4_SPARSE_GS_ROUNDS), True),
+        ("sparse_gs a2a", "sparse_gs", "a2a", lap, P4_LAP_ROUNDS, slab4,
+         gs_counts["sparse"](P4_LAP_ROUNDS), False),
+        ("sparse_gs allgather", "sparse_gs", "allgather", lap, P4_LAP_ROUNDS,
+         slab4, gs_counts["sparse"](P4_LAP_ROUNDS), False),
+        ("banded_gs", "banded_gs", "allgather", banded, P4_BANDED_GS_ROUNDS,
+         nb4, gs_counts["banded_gs"](P4_BANDED_GS_ROUNDS), True),
+        ("halo_gs", "halo_gs", "halo", banded, P4_BANDED_GS_ROUNDS, nb4,
+         gs_counts["halo_gs"](P4_BANDED_GS_ROUNDS), True),
+        ("dense_gs", "dense_gs", "allgather", banded, P4_BANDED_GS_ROUNDS,
+         nb4, gs_counts["dense_gs"](P4_BANDED_GS_ROUNDS), True))
+    for name, kind, sync, prob, rounds, steps, expect, falls in p4_runs:
+        tag = f"P = {P4} {name}, {rounds} rounds of {steps} local steps"
+        res = p4[name]
         print(f"  {tag}: wall s per rank "
-              + ", ".join(f"{wall:.3f}" for _, wall in res["ranks"])
+              + ", ".join(f"{wall:.3f}" for _, wall, _ in res["ranks"])
               + f" ({P4} CUDA contexts time-slicing one card: says nothing "
               "about scaling)", flush=True)
-        for rank, (counts, _) in enumerate(res["ranks"]):
+        for rank, (counts, _, _) in enumerate(res["ranks"]):
             check(counts == {name: expect.get(name, 0) for name in ops.KERNELS},
                   f"{tag}: rank {rank} launched exactly {expect}")
+        if kind.endswith("_gs"):
+            digests = {d for _, _, d in res["ranks"]}
+            check(len(digests) == 1, f"{tag}: the returned x is bitwise the "
+                  f"same on all {P4} ranks (SHA-256 {min(digests)[:16]})")
         resid = res["resid"]
-        check(bool((resid[-1] < P4_FALL * resid[0]).all()),
-              f"{tag}: the residual falls {1 / P4_FALL:g}-fold (column 0 "
-              f"{float(resid[0, 0]):.4g} -> {float(resid[-1, 0]):.4g}, "
-              f"smallest fall {float((resid[0] / resid[-1]).min()):.4g}x)")
-        x = res["x"].to(dev)
-        relres = float((torch.linalg.vector_norm(prob.b - prob.A @ x, dim=0)
-                        / torch.linalg.vector_norm(prob.b, dim=0)).max())
-        check(relres < P4_REL, f"{tag}: rank 0's final relative residual "
-              f"(dense torch.matmul) {relres:.3e} < {P4_REL:g}")
-        schedule_numbers(tag, res, kind, steps, P4)
-        check(res["bytes_per_round"] > 0, f"{tag}: a delta all-reduce of "
+        if falls:
+            check(bool((resid[-1] < P4_FALL * resid[0]).all()),
+                  f"{tag}: the residual falls {1 / P4_FALL:g}-fold (column 0 "
+                  f"{float(resid[0, 0]):.4g} -> {float(resid[-1, 0]):.4g}, "
+                  f"smallest fall {float((resid[0] / resid[-1]).min()):.4g}x)")
+            x = res["x"].to(dev)
+            relres = float((torch.linalg.vector_norm(prob.b - prob.A @ x,
+                                                     dim=0)
+                            / torch.linalg.vector_norm(prob.b, dim=0)).max())
+            check(relres < P4_REL, f"{tag}: rank 0's final relative residual "
+                  f"(dense torch.matmul) {relres:.3e} < {P4_REL:g}")
+        else:
+            check(bool(torch.isfinite(resid).all()
+                       and (resid[-1] < resid[0]).all()),
+                  f"{tag}: the residual is finite and falls (column 0 "
+                  f"{float(resid[0, 0]):.4g} -> {float(resid[-1, 0]):.4g})")
+        schedule_numbers(tag, res, kind, steps, P4, sync=sync,
+                         a2a_schedule=lap_plan if sync == "a2a" else ())
+        check(res["bytes_per_round"] > 0, f"{tag}: {sync} of "
               f"{res['bytes_per_round']:g} bytes per rank and round")
+    check(len(lap_plan) == 2 and [s for s, _ in lap_plan] == [1, P4 - 1],
+          f"laplacian_spd({FCG_SIDE}) in CSR at P = {P4}: slabs read their "
+          f"neighbours only, {len(lap_plan)} rotations (offsets "
+          f"{[s for s, _ in lap_plan]}), "
+          f"{sum(len(pairs) for _, pairs in lap_plan)} sends a round")
+    dense_graph = bool(ops_by[("spd", None)].slab_neighbors(P4).all())
+    check(dense_graph and p4["sparse_gs"]["bytes_per_round"]
+          == 4.0 * slab4 * K,
+          f"the SPD problem's neighbor graph at P = {P4} is dense: "
+          "sync='auto' resolved to a2a, which fell back to the all-gather "
+          f"of 4 * {slab4} * {K} bytes a round")
+    a2a, ag = p4["sparse_gs a2a"], p4["sparse_gs allgather"]
+    check(all(torch.equal(a2a[f], ag[f]) for f in ("x", "resid"))
+          and a2a["ranks"][0][2] == ag["ranks"][0][2],
+          f"P = {P4} sparse_gs on the Laplacian: a2a's iterate and "
+          "residuals bitwise the all-gather's, same picks")
+    check(torch.equal(p4["halo_gs"]["x"], p4["banded_gs"]["x"]),
+          f"P = {P4}: halo_gs's iterate bitwise banded_gs's, same picks")
+    e = rel(p4["dense_gs"]["x"], p4["banded_gs"]["x"])
+    check(e <= SWEEP_RTOL, f"P = {P4}: dense_gs and banded_gs, same block "
+          f"picks: rel err of x {e:.3e} <= {SWEEP_RTOL:g}")
+    del lap, lap_csr
+
+    print("  gloo point-to-point on CUDA tensors (two spawned processes):",
+          flush=True)
+    took, err = run_workers(gloo_p2p_probe, 2, backend="gloo", device="cuda",
+                            timeout=120)
+    said = "taken" if took else f"refused ({err[-120:]})"
+    print(f"  gloo batch_isend_irecv on CUDA tensors: {said} (the engine "
+          "stages its point-to-point payloads through pinned host buffers "
+          "either way)", flush=True)
+    check(live_children() == [], "the probe's processes have ended")
 
     def a_rel(prob, res):
         return float((res.err_sq[-1] / a_norm_sq(prob.A, prob.x_star)).mean())

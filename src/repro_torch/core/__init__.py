@@ -4,7 +4,8 @@ engine with its front door ``solve``, its bounded-delay simulator
 ``solve_async_sim`` and its serving unit ``solve_batched`` (``engine``),
 the dense GS wrappers (``rgs``, ``async_rgs``), the CG baselines
 (``cg``), the rate formulas (``theory``) and the distributed engine on
-``torch.distributed`` (``distributed``)."""
+``torch.distributed`` (``distributed``) with its GS wrappers
+(``parallel_rgs``)."""
 
 from repro_torch.core import distributed, engine, theory
 from repro_torch.core.async_rgs import async_rgs_solve, iteration_identity_gap
@@ -22,6 +23,9 @@ from repro_torch.core.kaczmarz import (LSQProblem, async_rk_solve,
                                        row_norms_sq)
 from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp, EllOp,
                                         as_operator)
+from repro_torch.core.parallel_rgs import (effective_tau, parallel_rgs_banded,
+                                           parallel_rgs_halo,
+                                           parallel_rgs_solve)
 from repro_torch.core.rgs import block_gs_solve, rgs_general, rgs_solve
 from repro_torch.core.spd import (SPDProblem, a_norm_sq, block_banded_spd,
                                   dense_spd, ell_from_dense, laplacian_spd,
@@ -48,12 +52,16 @@ __all__ = [
     "dense_spd",
     "distributed",
     "draw_picks",
+    "effective_tau",
     "ell_from_dense",
     "engine",
     "fcg_solve",
     "iteration_identity_gap",
     "laplacian_spd",
     "make_rgs_preconditioner",
+    "parallel_rgs_banded",
+    "parallel_rgs_halo",
+    "parallel_rgs_solve",
     "random_lsq",
     "random_sparse_lsq",
     "random_sparse_spd",

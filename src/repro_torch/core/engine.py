@@ -37,9 +37,10 @@ The serving unit is ``sequential_chunk`` (one record chunk: the sweep and
 the residual) and ``solve_batched`` (chunks with per-column tolerances and
 early exit), which ``serve/`` drives.
 
-Not ported yet: the distributed strategies other than Kaczmarz under the
-delta all-reduce (ROADMAP queue 1 item 8) and block GS with
-``gs_block > 1`` on the CSR format (queue 1 item 3).
+Not ported yet: the distributed RK a2a exchange, ``dense_rk``,
+``overlap``, ``compress`` and ``partition="balanced"`` (ROADMAP queue 1
+item 8), and block GS with ``gs_block > 1`` on the CSR format (queue 1
+item 3).
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ class SolveResult(NamedTuple):
 
 
 class ParallelSolveResult(NamedTuple):
-    x: torch.Tensor        # (n, k) the calling rank's replica
+    x: torch.Tensor        # (n, k) GS: the assembled iterate; RK: the
+                           # calling rank's replica
     err_sq: torch.Tensor   # (rounds, k)
     resid: torch.Tensor    # (rounds, k)
     tau: int               # effective staleness bound of the schedule
@@ -698,6 +700,7 @@ def solve(
     group=None,
     sync: str = "auto",
     seed: int | None = None,
+    with_metrics: bool = True,
     delay_generator: torch.Generator | None = None,
     delays: torch.Tensor | None = None,
     read_model: str = "consistent",
@@ -717,7 +720,7 @@ def solve(
     order), ``storage_dtype`` the coefficient precision (``None`` keeps
     the input dtype; the iterate, ``b`` and all accumulation stay f32),
     and ``gs_block`` the block-GS granularity on the dense format (1:
-    coordinate GS).
+    coordinate GS; the distributed sparse strategies refuse another).
 
     A sequential ``schedule`` draws its direction stream from
     ``generator`` (``seed`` raises) or takes ``picks``.  With ``tau > 0``
@@ -728,18 +731,15 @@ def solve(
     ``local_steps``) runs ``core.distributed.solve_distributed`` on the
     ``torch.distributed`` process group ``group`` (the counterpart of the
     reference's ``mesh``): every rank calls ``solve`` with the whole
-    problem, ``sync`` picks the collective, and the streams come from
-    ``seed`` (the same on every rank) or from ``picks``; the result is a
-    ``ParallelSolveResult`` holding the calling rank's replica.
+    problem, ``sync`` picks the collective, the streams come from
+    ``seed`` (the same on every rank) or from ``picks``, and
+    ``with_metrics=False`` leaves the records zero; the result is a
+    ``ParallelSolveResult`` holding the assembled iterate (GS) or the
+    calling rank's replica (Kaczmarz).
     """
     if action is None:
         action = "rk" if hasattr(problem, "sigma_min") else "gs"
     schedule.validate()
-    if gs_block != 1 and schedule.distributed:
-        raise NotImplementedError(
-            f"gs_block={gs_block}: the distributed engine runs Kaczmarz "
-            "only; distributed block GS is not ported yet (ROADMAP queue 1 "
-            "item 8)")
     if rows_per_panel is None:
         rows_per_panel = tune_runtime.tuned_rows_per_panel(
             problem.A.shape[0], storage_dtype) or 8
@@ -764,7 +764,8 @@ def solve(
         return solve_distributed(
             op, problem.b, x0, problem.x_star, action=action, group=group,
             rounds=schedule.rounds, local_steps=schedule.local_steps,
-            beta=beta, sync=sync, seed=seed, picks=picks)
+            block=gs_block, beta=beta, sync=sync, seed=seed, picks=picks,
+            with_metrics=with_metrics)
     if seed is not None:
         raise ValueError("a sequential solve draws its stream from "
                          "generator= (or takes picks=), not from seed=")

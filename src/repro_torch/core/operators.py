@@ -14,12 +14,17 @@ what the engine's actions need:
 * ``block_gs_sweep``   — (dense) a whole run of aligned block-row GS
                          steps, one kernel launch.
 
-The distributed engine's operator methods (``row_panel``,
-``residual_panel``, ``slab_neighbors``, ``shard_spec``) are not ported yet
-(ROADMAP queue 1 item 8).
+The distributed engine's layout queries: ``halo_width`` (how far a row
+reads from itself: ``bands * block`` on the block-banded format, ``None``
+elsewhere), ``slab_neighbors(P)`` on CSR and ELL (which row slab reads
+which column slab, ``slab_neighbor_matrix``) and, for the banded records,
+``BlockBandedOp.window_tiles`` with ``banded_window_matvec``.  The
+reference's per-step shard helpers (``banded_panel_residual`` and its
+kin) have no port: the local phases are whole-round kernels.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.spd import ell_from_dense
@@ -30,7 +35,8 @@ from repro_torch.tune import runtime as tune_runtime
 from repro_torch.tune.table import MATVEC_VARIANTS
 
 __all__ = ["BlockBandedOp", "CsrOp", "DenseOp", "EllOp", "as_operator",
-           "canonical_storage_dtype"]
+           "banded_window_matvec", "canonical_storage_dtype",
+           "slab_neighbor_matrix"]
 
 # The storage-precision axis (DESIGN.md §7): coefficients may be held in
 # bf16 while row norms, sampling and the iterate stay f32; the kernels
@@ -82,6 +88,47 @@ def _layout_scalars(counts: torch.Tensor, rows_per_panel: int):
         _per_panel(counts, rows_per_panel).sum(1).max()]).tolist())
 
 
+def slab_neighbor_matrix(rows: torch.Tensor, cols: torch.Tensor,
+                         real: torch.Tensor, m: int, n: int,
+                         num_workers: int) -> np.ndarray:
+    """Host-side neighbor graph of a row-slab partition.
+
+    ``need[w, v]`` is True when worker ``w``'s rows (slab ``[w*m/P,
+    (w+1)*m/P)``) read at least one coefficient owned by worker ``v``
+    (column slab ``[v*n/P, (v+1)*n/P)``); the diagonal is always True.
+    ``rows``/``cols``/``real`` give each stored slot's row, column and
+    whether it holds a nonzero, on any one device: the P x P matrix is
+    filled there and read back once.  The distributed engine's
+    ``sync="a2a"`` builds its rotations from it.
+    """
+    if m % num_workers or n % num_workers:
+        raise ValueError(
+            f"worker count ({num_workers}) must divide rows ({m}) and "
+            f"columns ({n}) for a slab partition")
+    w = rows.reshape(-1).long() // (m // num_workers)
+    v = cols.reshape(-1).long() // (n // num_workers)
+    hits = torch.zeros(num_workers * num_workers, dtype=torch.int64,
+                       device=real.device)
+    hits.index_add_(0, w * num_workers + v, real.reshape(-1).long())
+    need = (hits > 0).view(num_workers, num_workers).cpu().numpy().copy()
+    np.fill_diagonal(need, True)
+    return need
+
+
+def banded_window_matvec(tiles: torch.Tensor, vw: torch.Tensor, *,
+                         bands: int, block: int) -> torch.Tensor:
+    """``(A v)`` for a run of block rows from their halo-padded window
+    ``vw`` (``slab + 2 * bands * block`` rows), one ``bbmv`` launch.
+
+    ``tiles`` is ``BlockBandedOp.window_tiles`` of those block rows: their
+    packed tiles between ``bands`` zero block rows a side, so that ``bbmv``
+    over the window reads every tile of the owned rows and computes zeros
+    for the halo's.  Returns the owned rows, (slab, k)."""
+    halo = bands * block
+    y = ops.bbmv(tiles, vw, bands=bands, block=block)
+    return y[halo:y.shape[0] - halo]
+
+
 # Columns of one dense matvec product.  cuBLAS picks its kernel, and with
 # it the order of every sum, by shape (at one column a matrix-vector
 # product), so x is cut into groups of this width, the last zero-padded:
@@ -107,6 +154,11 @@ class DenseOp:
     @property
     def device(self) -> torch.device:
         return self.A.device
+
+    @property
+    def halo_width(self):
+        """Dense rows read every column: no finite halo."""
+        return None
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         A = self.A.to(x.dtype)
@@ -206,6 +258,11 @@ class BlockBandedOp:
     def device(self) -> torch.device:
         return self.A_bands.device
 
+    @property
+    def halo_width(self) -> int:
+        """Rows a block row reads either side of itself."""
+        return self.bands * self.block
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """``A @ x`` through the block-banded matvec kernel."""
         return ops.bbmv(self.A_bands, x, bands=self.bands, block=self.block)
@@ -216,6 +273,14 @@ class BlockBandedOp:
         if self._packed is None:
             self._packed = pack_bands_local(self.A_bands, self.bands)
         return self._packed
+
+    def window_tiles(self, blocks: slice) -> torch.Tensor:
+        """The packed tiles of block rows ``blocks`` between ``bands`` zero
+        block rows a side: what ``banded_window_matvec`` reads to compute
+        those rows of A·v from their halo-padded window of v."""
+        own = self.packed_band_tiles()[blocks]
+        return torch.nn.functional.pad(own, (0, 0, 0, 0, 0, 0, self.bands,
+                                             self.bands))
 
     def gs_sweep(self, b, x, picks, *, beta: float = 1.0) -> torch.Tensor:
         """Fused sequential block-GS sweep: one step per picked block row,
@@ -254,6 +319,7 @@ class EllOp:
         self.cols = cols
         self._row_counts = None
         self._stored = None
+        self._neighbors: dict[int, np.ndarray] = {}
 
     @classmethod
     def from_dense(cls, A: torch.Tensor, *, width: int | None = None,
@@ -285,6 +351,21 @@ class EllOp:
     @property
     def device(self) -> torch.device:
         return self.vals.device
+
+    @property
+    def halo_width(self):
+        """Gather columns are unstructured: no finite halo."""
+        return None
+
+    def slab_neighbors(self, num_workers: int) -> np.ndarray:
+        """Row-slab neighbor graph (``slab_neighbor_matrix``) of the stored
+        nonzeros, memoized per worker count."""
+        if num_workers not in self._neighbors:
+            n, w = self.vals.shape
+            rows = torch.arange(n, device=self.device)[:, None].expand(n, w)
+            self._neighbors[num_workers] = slab_neighbor_matrix(
+                rows, self.cols, self.vals != 0, n, n, num_workers)
+        return self._neighbors[num_workers]
 
     def row_counts(self) -> torch.Tensor:
         """Per-row count of stored entries, (n,) int32 on the device:
@@ -378,6 +459,7 @@ class CsrOp:
         self._panel_nnz: torch.Tensor | None = None
         self._has_empty_panel: bool | None = None
         self._panel0_tail: bool | None = None
+        self._neighbors: dict[int, np.ndarray] = {}
 
     @classmethod
     def from_dense(cls, A: torch.Tensor, *, rows_per_panel: int = 8,
@@ -470,6 +552,23 @@ class CsrOp:
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    @property
+    def halo_width(self):
+        """Gather columns are unstructured: no finite halo."""
+        return None
+
+    def slab_neighbors(self, num_workers: int) -> np.ndarray:
+        """Row-slab neighbor graph (``slab_neighbor_matrix``) of the stored
+        nonzeros (padding slots hold 0 and are not read as neighbors),
+        memoized per worker count: the graph is a property of the
+        pattern, and the distributed engine asks for it every solve."""
+        if num_workers not in self._neighbors:
+            m, n = self._shape
+            self._neighbors[num_workers] = slab_neighbor_matrix(
+                self.row_id, self.indices, self.data != 0, m, n,
+                num_workers)
+        return self._neighbors[num_workers]
 
     def padded_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(m, row_cap) per-row value/column windows with global column

@@ -37,6 +37,7 @@ from repro_torch.core import rgs, spd  # noqa: E402
 from repro_torch.core.engine import Schedule, solve  # noqa: E402
 from repro_torch.core.operators import DenseOp  # noqa: E402
 from repro_torch.kernels import block_gs, ops, ref  # noqa: E402
+from repro_torch.launch.mesh import process_group  # noqa: E402
 from repro_torch.tune import block_gs_probe, block_gs_segments  # noqa: E402
 
 
@@ -222,7 +223,7 @@ def test_block_gs_sweep_checks_its_arguments():
                                               block=2), b)
 
 
-def test_gs_block_outside_the_dense_gs_path_raises():
+def test_gs_block_outside_the_dense_gs_path_raises(tmp_path):
     p = spd.random_sparse_spd(32, row_nnz=4, n_rhs=1, seed=1, device="cpu")
     g = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
@@ -231,9 +232,16 @@ def test_gs_block_outside_the_dense_gs_path_raises():
     with pytest.raises(ValueError, match="Gauss-Seidel granularity"):
         solve(p, format="dense", gs_block=8, action="rk", generator=g,
               schedule=Schedule(num_iters=8))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        solve(p, format="dense", gs_block=8, seed=0,
-              schedule=Schedule(rounds=1, local_steps=4))
+    # distributed: dense block GS runs, the sparse slab strategies refuse
+    # a block as the reference's do
+    with process_group("gloo", tmp_path) as group:
+        res = solve(p, format="dense", gs_block=8, seed=0, group=group,
+                    schedule=Schedule(rounds=1, local_steps=4))
+        assert res.x.shape == (32, 1)
+        with pytest.raises(NotImplementedError, match="block=8 is not "
+                                                      "supported for CsrOp"):
+            solve(p, format="csr", gs_block=8, seed=0, group=group,
+                  schedule=Schedule(rounds=1, local_steps=4))
 
 
 @pytest.mark.parametrize("n,seed", [(64, 0), (200, 3)])

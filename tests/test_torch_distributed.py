@@ -323,8 +323,8 @@ def test_distributed_errors(group):
             solve(p if fmt == "csr" else _problem("spd")[1], format=fmt,
                   action="rk", schedule=sched, group=group, seed=0)
     # any other row: the enumerating message, listing the port's rows
-    for fmt, action, sync in (("dense", "rk", "psum"), ("csr", "gs", "auto"),
-                              ("banded", "gs", "auto")):
+    for fmt, action, sync in (("dense", "rk", "psum"), ("csr", "gs", "halo"),
+                              ("banded", "gs", "a2a")):
         prob = _problem("banded")[1] if fmt == "banded" else p
         with pytest.raises(NotImplementedError) as e:
             solve(prob, format=fmt, action=action, schedule=sched,

@@ -1,8 +1,10 @@
-"""The port's sequential CLIs (``python -m repro_torch.launch.solve`` and
+"""The port's CLIs (``python -m repro_torch.launch.solve`` and
 ``...launch.lsq``) on the CPU at small sizes: every pass's line is
-printed, residuals are finite and below their start, beta~ and the rate
-factors lie in (0, 1]; both default to the card and raise without one;
-``launch.serve`` takes its ``--format`` choices from ``launch.solve``.
+printed (``launch.solve``'s distributed pass in this process at one
+worker, in spawned gloo ranks above), residuals are finite and below
+their start, beta~ and the rate factors lie in (0, 1]; both default to the
+card and raise without one; ``launch.serve`` takes its ``--format``
+choices from ``launch.solve``.
 """
 import os
 import re
@@ -48,6 +50,11 @@ def test_solve_cli(capsys, fmt):
     assert 0 < _number(theory, r"epoch factor <= ") <= 1
     assert _number(theory, r"tau=") == 0 == out["tau"]   # P = 1 on the CPU
     assert ("[warn] --ell-width 4" in text) == (fmt == "ell")
+    # the distributed pass at P = 1 (one worker on the CPU), in process
+    line = _line(text, "async RGS")
+    assert "P=1 tau=0 " in line and "sync=auto (0 B/round) 4 rounds" in line
+    assert 0 <= _number(line, r"resid ") < b0
+    assert out["async"].resid.shape == (4, 3)
     res = out["sync"]
     assert res.resid.shape == (4, 3) and bool(torch.isfinite(res.resid).all())
     assert bool((res.resid[1:] <= res.resid[:-1]).all())
@@ -57,9 +64,32 @@ def test_solve_cli_theory_follows_workers(capsys):
     out = solve.main(["--device", "cpu", "--n", "128", "--rhs", "1",
                       "--sweeps", "1", "--workers", "4", "--local-steps",
                       "8"])
-    theory = _line(capsys.readouterr().out, "theory")
+    text = capsys.readouterr().out
+    theory = _line(text, "theory")
     assert out["tau"] == 24 and "P=4 tau=24" in theory
     assert 0 < out["beta"] < 1
+    # the distributed pass on four spawned gloo ranks: dense_gs under the
+    # all-gather, 4 rounds of 8 steps a rank, a 32-row slab of one column
+    line = _line(text, "async RGS")
+    assert "P=4 tau=24 " in line and "(128 B/round) 4 rounds" in line
+    assert out["async"].tau == 24 and out["async"].resid.shape == (4, 1)
+    assert 0 <= _number(line, r"resid ") < float(
+        torch.linalg.vector_norm(out["problem"].b))
+
+
+def test_solve_cli_distributed_a2a_and_sync_choices(capsys):
+    """Two ranks on CSR under the neighbor exchange; a2a on the dense
+    format and halo (the banded format's) are refused as flags."""
+    out = solve.main(["--device", "cpu", "--n", "64", "--rhs", "2",
+                      "--sweeps", "2", "--format", "csr", "--workers", "2",
+                      "--sync", "a2a"])
+    line = _line(capsys.readouterr().out, "async RGS")
+    assert "P=2 tau=32 " in line and "sync=a2a" in line
+    assert out["async"].x.shape == (64, 2)
+    assert bool(torch.isfinite(out["async"].resid).all())
+    for argv in (["--sync", "a2a"], ["--sync", "halo", "--format", "csr"]):
+        with pytest.raises(SystemExit):
+            solve.main(["--device", "cpu", "--n", "32", *argv])
 
 
 @pytest.mark.parametrize("fmt", ["dense", "csr"])
