@@ -332,27 +332,6 @@ def rel(a, b) -> float:
     return float((a - b).double().norm() / (b.double().norm() + 1e-300))
 
 
-def gloo_p2p_probe(group, device):
-    """Rank 0 sends a tensor on ``device`` to rank 1 by
-    ``batch_isend_irecv`` (run in two spawned processes): whether gloo's
-    point-to-point takes it.  Each rank returns (ok, its error); rank 0's
-    is the sender's.  The engine stages such payloads through pinned host
-    buffers either way (``core/distributed.py::_P2P``)."""
-    import torch
-    import torch.distributed as dist
-    rank = dist.get_rank(group)
-    t = torch.arange(6, dtype=torch.float32, device=device)
-    got = torch.full_like(t, -1.0)
-    op = (dist.P2POp(dist.isend, t, 1, group) if rank == 0
-          else dist.P2POp(dist.irecv, got, 0, group))
-    try:
-        for req in dist.batch_isend_irecv([op]):
-            req.wait()
-    except RuntimeError as err:
-        return False, str(err).strip()
-    return rank == 0 or torch.equal(got.cpu(), torch.arange(6.)), ""
-
-
 def p4_rank(group, device, path):
     """One rank of the P = 4 phase (run in a spawned process): rebuild the
     operators from the arrays the parent saved (CSR: the LSQ design, the
@@ -3053,16 +3032,6 @@ def main() -> int:
     check(e <= SWEEP_RTOL, f"P = {P4}: dense_gs and banded_gs, same block "
           f"picks: rel err of x {e:.3e} <= {SWEEP_RTOL:g}")
     del lap, lap_csr
-
-    print("  gloo point-to-point on CUDA tensors (two spawned processes):",
-          flush=True)
-    took, err = run_workers(gloo_p2p_probe, 2, backend="gloo", device="cuda",
-                            timeout=120)
-    said = "taken" if took else f"refused ({err[-120:]})"
-    print(f"  gloo batch_isend_irecv on CUDA tensors: {said} (the engine "
-          "stages its point-to-point payloads through pinned host buffers "
-          "either way)", flush=True)
-    check(live_children() == [], "the probe's processes have ended")
 
     def a_rel(prob, res):
         return float((res.err_sq[-1] / a_norm_sq(prob.A, prob.x_star)).mean())
