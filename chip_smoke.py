@@ -24,13 +24,24 @@ banded problem) at P = 1 in this process, and at P = 4 in four spawned
 processes that share the card through a gloo group (``sparse_gs`` by
 ``sync="auto"``, and under the neighbor exchange and the all-gather on
 ``laplacian_spd(128)``, bitwise equal; ``halo_gs`` bitwise
-``banded_gs``), and asks whether gloo's point-to-point takes CUDA
-tensors.  It drives the serving path
+``banded_gs``).  It drives the rest of the distributed engine: at P = 1
+``dense_rk`` on ``random_lsq(32768, 4096)`` (its local phase's kernel
+first held to the plain version at the dense window shape), ``sparse_rk``
+under ``compress``, ``overlap`` on ``sparse_gs``, ``halo_gs`` and
+``sparse_rk``, and ``partition="balanced"``; at P = 4 the Kaczmarz a2a
+exchange bitwise the psum on the banded problem in CSR, ``sync="auto"``
+on the LSQ design, ``dense_rk``, the overlapped syncs with their lag
+traces, ``dense_gs``'s warned lockstep fallback, both codecs on
+``sparse_rk`` and ``halo_gs``, and the balanced partition of a
+norm-skewed design.  It drives the serving path
 (``repro_torch.serve.SolverService`` over the CSR GS and RK problems,
 ``solve_batched`` and ``sequential_chunk``: tenants batched onto one
 launch per chunk, padded columns bitwise their solo solves, early exits,
 deadlines, streamed partials, an open-loop load batched and serial, and
-``python -m repro_torch.launch.serve`` in a child process) and times a
+``python -m repro_torch.launch.serve`` in a child process), the
+sequential and distributed passes of ``launch.solve`` and ``launch.lsq``
+(in process and as children: ``launch.lsq --workers 4`` dense, and on
+CSR with a2a, overlap and the int8 wire) and times a
 served chunk from Python, from a CUDA graph and with the host's per-chunk
 reads.  It holds the two paths of the GS and of both
 Kaczmarz sweeps (the iterate in shared memory, or in global memory when it
@@ -213,6 +224,33 @@ P4_FALL, P4_REL = 1e-2, 1e-2  # residual falls 100-fold; final rel < 1e-2
 DIST_GS_ROUNDS, DIST_BANDED_GS_ROUNDS = 3, 10
 P4_SPARSE_GS_ROUNDS, P4_LAP_ROUNDS, P4_BANDED_GS_ROUNDS = 16, 4, 12
 P4_GS_SEED = SEED + 22
+# The rest of the distributed engine.  P = 1 in this process
+# (engine_rest_p1_phase): dense_rk on random_lsq(LSQ_M, LSQ_N, n_rhs=K)
+# (512 MiB f32, the sparse RK design's shape), DENSE_RK_ROUNDS rounds of
+# DENSE_RK_STEPS picks, one sweep_rows_rk_delta launch a round over the
+# rows as windows of width LSQ_N (its kernel held to the plain version on
+# DENSE_CHECK_PICKS picks, one in DENSE_CHECK_FOREIGN on the appended zero
+# row); sparse_rk under compress, bitwise no compression; overlap on
+# sparse_gs, halo_gs and sparse_rk, bitwise lockstep with lag 0;
+# partition="balanced" on sparse_rk and sparse_gs (one slab: the identity
+# permutation, bitwise contiguous).  P = 4 (p4_rank): the Kaczmarz a2a
+# exchange and the psum on the banded problem in CSR (a chain of column
+# slabs), P4_A2A_ROUNDS rounds of P4_A2A_STEPS; sync="auto" on the LSQ
+# design (a dense graph: the psum, bitwise the psum run); dense_rk on the
+# dense design, P4_DENSE_RK_ROUNDS rounds of P4_DENSE_RK_STEPS at the
+# theory's beta~ for tau = steps - 1; overlap on sparse_gs (SPD, beta
+# P4_OVERLAP_GS_BETA), halo_gs and sparse_rk, dense_gs's overlap the
+# lockstep fallback; compress bf16 and int8_ef on sparse_rk and halo_gs;
+# partition="balanced" on the LSQ design with its first quarter of rows
+# scaled by P4_SKEW (norm-skewed).  Runs that must converge fall
+# P4_CONVERGE-fold.
+DENSE_RK_ROUNDS, DENSE_RK_STEPS = 2, 4096
+DENSE_CHECK_PICKS, DENSE_CHECK_FOREIGN = 32, 8
+DENSE_RK_SEED = SEED + 41
+P4_A2A_ROUNDS, P4_A2A_STEPS = 16, 512
+P4_DENSE_RK_ROUNDS, P4_DENSE_RK_STEPS = 8, 256
+P4_OVERLAP_GS_BETA, P4_SKEW, P4_CONVERGE = 0.9, 20.0, 0.1
+INT8_EF_RTOL = 5e-2         # the int8_ef iterate against the f32 wire's
 # The serving phase (serving_phase): the main SPD problem served by GS and
 # the main LSQ design by RK, both on CSR, in chunks of SERVE_REC picks, at
 # most 32 sweeps (GS: rtol 1e-3 needs about 10-18 at lam in [0.79, 1.21])
@@ -334,11 +372,12 @@ def rel(a, b) -> float:
 
 def p4_rank(group, device, path):
     """One rank of the P = 4 phase (run in a spawned process): rebuild the
-    operators from the arrays the parent saved (CSR: the LSQ design, the
-    SPD problem, the Laplacian; the band tiles, and the dense matrix from
-    them), run the distributed Kaczmarz and GS strategies with the launch
-    counters set to 0 just before each, and gather every rank's counts,
-    wall time and a SHA-256 of its returned x."""
+    operators from the arrays the parent saved (CSR: the LSQ design, its
+    norm-skewed copy, the SPD problem, the Laplacian; the band tiles, and
+    the dense matrix and its CSR from them; the dense LSQ design), run the
+    distributed Kaczmarz and GS strategies with the launch counters set to
+    0 just before each, and gather every rank's counts, wall time and a
+    SHA-256 of its returned x."""
     import hashlib
 
     import torch
@@ -346,7 +385,7 @@ def p4_rank(group, device, path):
 
     from repro_torch import convert
     from repro_torch.core.distributed import solve_distributed
-    from repro_torch.core.operators import DenseOp
+    from repro_torch.core.operators import CsrOp, DenseOp
     from repro_torch.kernels import ops
     data = torch.load(path)
 
@@ -358,10 +397,17 @@ def p4_rank(group, device, path):
 
     band = convert.banded_from_arrays(data["tiles"].numpy(), BANDS,
                                       device=device)
-    spd_csr, lap_csr = csr("spd"), csr("lap")
+    band_dense = band.to_dense()
+    spd_csr, lap_csr, lsq_csr = csr("spd"), csr("lap"), csr("lsq")
     nb4 = band.nb // dist.get_world_size(group)
     slab = data["spd_b"].shape[0] // dist.get_world_size(group)
     gs = dict(action="gs", seed=P4_GS_SEED)
+    lsq_rk = dict(action="rk", seed=SEED + 21, rounds=P4_SPARSE_ROUNDS,
+                  local_steps=P4_SPARSE_STEPS, beta=P4_SPARSE_BETA)
+    band_rk = dict(action="rk", seed=SEED + 23, rounds=P4_A2A_ROUNDS,
+                   local_steps=P4_A2A_STEPS, beta=P4_SPARSE_BETA)
+    halo = dict(gs, sync="halo", rounds=P4_BANDED_GS_ROUNDS, local_steps=nb4)
+    band_csr = CsrOp.from_dense(band_dense)
     runs = (
         ("sparse_rk", csr("lsq"), "lsq",
          dict(action="rk", sync="psum", seed=SEED + 21,
@@ -383,9 +429,34 @@ def p4_rank(group, device, path):
               local_steps=nb4)),
         ("halo_gs", band, "band",
          dict(gs, sync="halo", rounds=P4_BANDED_GS_ROUNDS, local_steps=nb4)),
-        ("dense_gs", DenseOp(band.to_dense()), "band",
+        ("dense_gs", DenseOp(band_dense), "band",
          dict(gs, sync="allgather", block=BLOCK, rounds=P4_BANDED_GS_ROUNDS,
-              local_steps=nb4)))
+              local_steps=nb4)),
+        # the rest of the engine
+        ("sparse_rk a2a", band_csr, "band", dict(band_rk, sync="a2a")),
+        ("sparse_rk psum (banded CSR)", band_csr, "band",
+         dict(band_rk, sync="psum")),
+        ("sparse_rk auto", lsq_csr, "lsq", dict(lsq_rk, sync="auto")),
+        ("dense_rk", DenseOp(data["dense_A"].to(device)), "dense",
+         dict(action="rk", sync="psum", seed=DENSE_RK_SEED,
+              rounds=P4_DENSE_RK_ROUNDS, local_steps=P4_DENSE_RK_STEPS,
+              beta=float(data["dense_beta"]))),
+        ("sparse_gs overlap", spd_csr, "spd",
+         dict(gs, sync="auto", rounds=P4_SPARSE_GS_ROUNDS, local_steps=slab,
+              beta=P4_OVERLAP_GS_BETA, overlap=True)),
+        ("halo_gs overlap", band, "band", dict(halo, overlap=True)),
+        ("sparse_rk overlap", lsq_csr, "lsq",
+         dict(lsq_rk, sync="psum", overlap=True)),
+        ("dense_gs overlap", DenseOp(band_dense), "band",
+         dict(gs, sync="allgather", block=BLOCK, rounds=P4_BANDED_GS_ROUNDS,
+              local_steps=nb4, overlap=True)),
+        *((f"sparse_rk {c}", lsq_csr, "lsq",
+           dict(lsq_rk, sync="psum", compress=c))
+          for c in ("bf16", "int8_ef")),
+        *((f"halo_gs {c}", band, "band", dict(halo, compress=c))
+          for c in ("bf16", "int8_ef")),
+        ("sparse_rk balanced", csr("skew"), "skew",
+         dict(lsq_rk, sync="auto", partition="balanced")))
 
     def sync():
         if device.type == "cuda":
@@ -399,8 +470,12 @@ def p4_rank(group, device, path):
         dist.barrier(group)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = solve_distributed(op, b, torch.zeros_like(xs), xs, group=group,
-                                **kw)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = solve_distributed(op, b, torch.zeros((op.shape[1],
+                                                        b.shape[1]),
+                                                       device=device),
+                                    xs, group=group, **kw)
         sync()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -408,8 +483,360 @@ def p4_rank(group, device, path):
         ranks = [None] * dist.get_world_size(group)
         dist.all_gather_object(ranks, (counts, wall, digest), group=group)
         out[tag] = dict(x=res.x.cpu(), resid=res.resid.cpu(), tau=res.tau,
-                        bytes_per_round=res.bytes_per_round, ranks=ranks)
+                        bytes_per_round=res.bytes_per_round, ranks=ranks,
+                        lag=None if res.lag is None else res.lag.cpu(),
+                        warned=[str(w.message) for w in caught])
     return out
+
+
+def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches) -> dict:
+    """The rest of the distributed engine at P = 1 in this process, on a
+    world-size-1 gloo group: dense_rk at full width (its local phase's
+    kernel first held to the plain version at the dense window shape),
+    compress, overlap and partition="balanced", each with its launches
+    counted exactly and added to ``launches``.  Returns the dense design,
+    the theory's rho_rk of it, and the dense-window numbers of
+    sweep_rows_rk_delta for the kernels' line."""
+    import math
+
+    from repro_torch import Schedule, random_lsq, solve, theory
+    from repro_torch.kernels import ref, sweep_csr
+    from repro_torch.launch.mesh import process_group
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+
+    def counted(tag, expect, run):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        check(got == {name: expect.get(name, 0) for name in ops.KERNELS},
+              f"{tag}: launched exactly {expect} ({wall:.4f} s wall)")
+        for name, n in got.items():
+            launches[name] += n
+        return out
+
+    def bitwise(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("x", "err_sq", "resid"))
+
+    def falls_and_matches(tag, prob, res):
+        check(bool(torch.isfinite(res.x).all())
+              and bool((res.resid[-1] < res.resid[0]).all()),
+              f"{tag}: x finite, the residual falls (column 0 "
+              + ", ".join(f"{v:.4g}" for v in res.resid[:, 0].tolist())
+              + ")")
+        want = torch.linalg.vector_norm(prob.b - prob.A @ res.x, dim=0)
+        e = float(((res.resid[-1] - want).abs() / want).max())
+        check(e <= RESID_RTOL, f"{tag}: the last record is the residual of "
+              f"the returned x in the original system (dense torch.matmul), "
+              f"max rel diff {e:.3e} <= {RESID_RTOL:g}")
+
+    t0 = time.perf_counter()
+    dense = random_lsq(LSQ_M, LSQ_N, n_rhs=K, seed=SEED)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rho = float(theory.rk_rho(dense.A))
+    torch.cuda.synchronize()
+    print(f"  random_lsq({LSQ_M}, {LSQ_N}, n_rhs={K}) on the card: "
+          f"{t_build:.2f} s; rk_rho {rho:.4f} ({time.perf_counter() - t0:.2f}"
+          " s)", flush=True)
+
+    # dense_rk's local phase at its main-path shape: the rows as windows
+    # of width n, column ids arange(n), one all-zero row (b 0, rn 1) that
+    # the picks a rank does not own land on.
+    m, n = dense.A.shape
+    vals = torch.cat([dense.A, dense.A.new_zeros((1, n))])
+    cols = torch.arange(n, dtype=torch.int32, device=dev).expand(
+        m + 1, n).contiguous()
+    rn = (dense.A * dense.A).sum(1)
+    rn_z = torch.cat([torch.where(rn > 0, rn, 1.0), rn.new_ones((1,))])
+    b_z = torch.cat([dense.b, dense.b.new_zeros((1, K))])
+    gen = torch.Generator(dev).manual_seed(SEED + 42)
+    x = torch.randn((n, K), generator=gen, device=dev)
+    d = torch.randn((n, K), generator=gen, device=dev)
+    picks = torch.randint(0, m, (DENSE_CHECK_PICKS,), generator=gen,
+                          device=dev)
+    picks[::DENSE_CHECK_FOREIGN] = m
+    args = (vals, cols, b_z, rn_z)
+    got = ops.sweep_rows_rk_delta(*args, x, d, picks, beta=0.9)
+    want = ref.sweep_rows_rk_delta_ref(*args, x, d, picks, beta=0.9)
+    e = max(rel(got[0], want[0]), rel(got[1], want[1]))
+    check(e <= SWEEP_RTOL, f"sweep_rows_rk_delta at dense_rk's window "
+          f"shape ({m + 1}x{n} rows of width {n}, k={K}, "
+          f"{DENSE_CHECK_PICKS} picks, every {DENSE_CHECK_FOREIGN}th on the "
+          f"zero row): rel err of x and d {e:.3e} <= {SWEEP_RTOL:g}")
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    p32 = picks.to(torch.int32)
+    glob = sweep_csr.sweep_rows_rk_delta(*args, x, d, p32, beta=0.9,
+                                         limit=m + 1, _shared=False)
+    check(torch.equal(glob[0], got[0]) and torch.equal(glob[1], got[1]),
+          "sweep_rows_rk_delta at the dense window: the global path bitwise "
+          "the shared-memory path")
+    foreign = torch.full((64,), m, device=dev)
+    zx, zd = ops.sweep_rows_rk_delta(*args, x, d, foreign, beta=0.9)
+    check(torch.equal(zx, x) and torch.equal(zd, d),
+          "sweep_rows_rk_delta: 64 picks of the zero row leave both carries "
+          "bitwise unchanged (a rank's foreign picks)")
+    one = ops.sweep_rows_rk_delta(vals, cols, b_z[:, :1].contiguous(), rn_z,
+                                  x[:, :1].contiguous(),
+                                  d[:, :1].contiguous(), picks, beta=0.9)
+    check(torch.equal(one[0][:, 0], got[0][:, 0])
+          and torch.equal(one[1][:, 0], got[1][:, 0]),
+          f"sweep_rows_rk_delta at the dense window: column 0 at k={K} "
+          "bitwise equals k=1")
+    round_picks = torch.randint(0, m, (DENSE_RK_STEPS,), generator=gen,
+                                device=dev)
+    zero = torch.zeros_like(x)
+    ms = cuda_ms(lambda: ops.sweep_rows_rk_delta(*args, x, zero,
+                                                 round_picks), 5)
+    plain_ms = cuda_ms(lambda: ref.sweep_rows_rk_delta_ref(
+        *args, x, zero, picks), 1)
+    # bytes: per pick its window (n values, n ids), its b row, rn and id;
+    # both carries once in and once out.  flops: 6 n k + 3 k a pick.
+    b_ms, by = bound_ms(DENSE_RK_STEPS * (n * 8 + K * 4 + 8)
+                        + 2 * 2 * n * K * 4,
+                        DENSE_RK_STEPS * (6.0 * n * K + 3.0 * K))
+    print(f"  sweep_rows_rk_delta, one dense_rk round ({DENSE_RK_STEPS} picks "
+          f"of width {n}, k={K}): {ms:.4f} ms ({ms * 1e3 / DENSE_RK_STEPS:.3f}"
+          f" us/pick); plain {plain_ms:.2f} ms for {DENSE_CHECK_PICKS} picks; "
+          f"bound {b_ms:.5f} ms ({by})", flush=True)
+    extra = dict(dense_ms=ms, dense_us_per_pick=ms * 1e3 / DENSE_RK_STEPS,
+                 dense_plain_ms=plain_ms, dense_plain_picks=DENSE_CHECK_PICKS,
+                 dense_bound_ms=b_ms, dense_bound_by=by,
+                 dense_max_abs_err=max_abs)
+    del vals, cols, got, want, glob, one
+
+    R, L = DENSE_RK_ROUNDS, DENSE_RK_STEPS
+    sparse = dict(sweep_rows_rk_delta=DIST_RK_ROUNDS,
+                  spmv_ell=DIST_RK_ROUNDS, colsum=2 * DIST_RK_ROUNDS)
+    gs = dict(sweep_rows_gs=DIST_GS_ROUNDS, spmv_ell=2 * DIST_GS_ROUNDS,
+              colsum=2 * DIST_GS_ROUNDS)
+    nb = SPD_N // BLOCK
+    halo = dict(banded_gs_sweep=DIST_BANDED_GS_ROUNDS,
+                bbmv=2 * DIST_BANDED_GS_ROUNDS,
+                colsum=2 * DIST_BANDED_GS_ROUNDS)
+    with tempfile.TemporaryDirectory() as store, \
+            process_group("gloo", store) as pg:
+        drk = counted(
+            f"distributed dense_rk, P = 1, {R} rounds of {L} local steps",
+            dict(sweep_rows_rk_delta=R, colsum=2 * R),
+            lambda: solve(dense, format="dense", group=pg,
+                          seed=DENSE_RK_SEED,
+                          schedule=Schedule(rounds=R, local_steps=L)))
+        check(drk.x.shape == (n, K) and drk.tau == 0
+              and drk.bytes_per_round == 0.0 and drk.lag is None,
+              f"dense_rk at P = 1: x {tuple(drk.x.shape)}, tau 0, no "
+              "exchange")
+        falls_and_matches("dense_rk at P = 1", dense, drk)
+
+        def rk(**kw):
+            return solve(lsq, format="csr", group=pg, sync="psum",
+                         seed=SEED + 11,
+                         schedule=Schedule(rounds=DIST_RK_ROUNDS,
+                                           local_steps=LSQ_M, **kw))
+
+        base = counted("sparse_rk lockstep f32, P = 1", sparse, rk)
+        for c in ("bf16", "int8_ef"):
+            res = counted(f"sparse_rk compress={c}, P = 1", sparse,
+                          functools.partial(rk, compress=c))
+            check(bitwise(res, base) and res.bytes_per_round == 0.0,
+                  f"sparse_rk compress={c} at P = 1: bitwise no compression "
+                  "(x, err_sq, resid; nothing on the wire)")
+        ov = counted("sparse_rk overlap, P = 1", sparse,
+                     functools.partial(rk, overlap=True))
+        check(bitwise(ov, base)
+              and ov.lag.tolist() == [0] * DIST_RK_ROUNDS,
+              f"sparse_rk overlap at P = 1: bitwise lockstep, lag "
+              f"{ov.lag.tolist()}")
+
+        def gs_run(prob, fmt, rounds, steps, **kw):
+            fkw = (dict(block=BLOCK, bands=BANDS) if fmt == "banded"
+                   else {})
+            return functools.partial(
+                solve, prob, format=fmt, group=pg, seed=SEED + 13,
+                schedule=Schedule(rounds=rounds, local_steps=steps, **kw),
+                **fkw)
+
+        for name, prob, fmt, rounds, steps, expect in (
+                ("sparse_gs", spd, "csr", DIST_GS_ROUNDS, SPD_N, gs),
+                ("halo_gs", banded, "banded", DIST_BANDED_GS_ROUNDS, nb,
+                 halo)):
+            lock = counted(f"{name} lockstep, P = 1", expect,
+                           gs_run(prob, fmt, rounds, steps))
+            ov = counted(f"{name} overlap, P = 1", expect,
+                         gs_run(prob, fmt, rounds, steps, overlap=True))
+            check(bitwise(ov, lock) and ov.lag.tolist() == [0] * rounds,
+                  f"{name} overlap at P = 1: bitwise lockstep, lag "
+                  f"{ov.lag.tolist()}")
+            if name == "sparse_gs":
+                bal = counted("sparse_gs partition='balanced', P = 1",
+                              expect, gs_run(prob, fmt, rounds, steps,
+                                             partition="balanced"))
+                check(bitwise(bal, lock), "sparse_gs partition='balanced' "
+                      "at P = 1 (one slab: the identity permutation): "
+                      "bitwise contiguous")
+                falls_and_matches("sparse_gs balanced at P = 1", spd, bal)
+        bal = counted("sparse_rk partition='balanced', P = 1", sparse,
+                      functools.partial(rk, partition="balanced"))
+        check(bitwise(bal, base), "sparse_rk partition='balanced' at P = 1: "
+              "bitwise contiguous")
+        falls_and_matches("sparse_rk balanced at P = 1", lsq, bal)
+    relres = float((drk.resid[-1] / torch.linalg.vector_norm(
+        dense.b, dim=0)).max())
+    check(math.isfinite(relres), f"dense_rk at P = 1: largest final "
+          f"relative residual {relres:.4e} after {R * L} picks")
+    print(f"  the rest of the engine at P = 1: "
+          f"{time.perf_counter() - t_phase:.2f} s wall", flush=True)
+    return dict(dense=dense, rho=rho, extra=extra)
+
+
+def p4_rest_checks(torch, ops, p4, *, lsq, banded, spd, dense, skew,
+                   skew_csr, band_csr) -> None:
+    """The checks of the P = 4 runs of the rest of the engine (p4_rank):
+    each rank's launches exactly, x the same on every rank, the Kaczmarz
+    a2a exchange bitwise the psum with fewer bytes, sync="auto" bitwise
+    the psum on a dense graph, the overlap lag traces and their bound,
+    dense_gs's overlap the warned lockstep, the wire sizes of the codecs,
+    and convergence."""
+    import math
+
+    from repro_torch.core.distributed import (_payload_bytes, _rk_a2a_plan,
+                                              _sync_bytes_per_round)
+    from repro_torch.core.engine import scheduled_tau
+
+    slab4, nb4 = SPD_N // P4, SPD_N // BLOCK // P4
+    sparse = lambda r: dict(sweep_rows_rk_delta=r, spmv_ell=r,   # noqa: E731
+                            colsum=2 * r)
+    gs_sparse = dict(sweep_rows_gs=P4_SPARSE_GS_ROUNDS,
+                     spmv_ell=2 * P4_SPARSE_GS_ROUNDS,
+                     colsum=2 * P4_SPARSE_GS_ROUNDS)
+    halo = dict(banded_gs_sweep=P4_BANDED_GS_ROUNDS,
+                bbmv=2 * P4_BANDED_GS_ROUNDS, colsum=2 * P4_BANDED_GS_ROUNDS)
+    # (tag, rounds, local steps, launches a rank, problem, whether it must
+    # fall P4_CONVERGE-fold)
+    table = (
+        ("sparse_rk a2a", P4_A2A_ROUNDS, P4_A2A_STEPS,
+         sparse(P4_A2A_ROUNDS), banded, False),
+        ("sparse_rk psum (banded CSR)", P4_A2A_ROUNDS, P4_A2A_STEPS,
+         sparse(P4_A2A_ROUNDS), banded, False),
+        ("sparse_rk auto", P4_SPARSE_ROUNDS, P4_SPARSE_STEPS,
+         sparse(P4_SPARSE_ROUNDS), lsq, True),
+        ("dense_rk", P4_DENSE_RK_ROUNDS, P4_DENSE_RK_STEPS,
+         dict(sweep_rows_rk_delta=P4_DENSE_RK_ROUNDS,
+              colsum=2 * P4_DENSE_RK_ROUNDS), dense, False),
+        ("sparse_gs overlap", P4_SPARSE_GS_ROUNDS, slab4, gs_sparse, spd,
+         True),
+        ("halo_gs overlap", P4_BANDED_GS_ROUNDS, nb4, halo, banded, True),
+        ("sparse_rk overlap", P4_SPARSE_ROUNDS, P4_SPARSE_STEPS,
+         sparse(P4_SPARSE_ROUNDS), lsq, True),
+        ("dense_gs overlap", P4_BANDED_GS_ROUNDS, nb4,
+         dict(block_gs_sweep=P4_BANDED_GS_ROUNDS,
+              colsum=2 * P4_BANDED_GS_ROUNDS), banded, True),
+        *((f"sparse_rk {c}", P4_SPARSE_ROUNDS, P4_SPARSE_STEPS,
+           sparse(P4_SPARSE_ROUNDS), lsq, True) for c in ("bf16", "int8_ef")),
+        *((f"halo_gs {c}", P4_BANDED_GS_ROUNDS, nb4, halo, banded, True)
+          for c in ("bf16", "int8_ef")),
+        ("sparse_rk balanced", P4_SPARSE_ROUNDS, P4_SPARSE_STEPS,
+         sparse(P4_SPARSE_ROUNDS), skew, True))
+    dev = torch.device(DEVICE)
+    for name, rounds, steps, expect, prob, converges in table:
+        tag = f"P = {P4} {name}, {rounds} rounds of {steps} local steps"
+        res = p4[name]
+        walls = [wall for _, wall, _ in res["ranks"]]
+        print(f"  {tag}: wall s per rank "
+              + ", ".join(f"{w:.3f}" for w in walls)
+              + f" ({1e3 * max(walls) / rounds:.2f} ms a round at the "
+              "slowest rank; four CUDA contexts time-slice one card)",
+              flush=True)
+        for rank, (counts, _, _) in enumerate(res["ranks"]):
+            check(counts == {k: expect.get(k, 0) for k in ops.KERNELS},
+                  f"{tag}: rank {rank} launched exactly {expect}")
+        digests = {d for _, _, d in res["ranks"]}
+        check(len(digests) == 1, f"{tag}: the returned x is bitwise the "
+              f"same on all {P4} ranks (SHA-256 {min(digests)[:16]})")
+        resid = res["resid"]
+        fall = float((resid[-1] / resid[0]).max())
+        ok = bool(torch.isfinite(resid).all()) and fall < (
+            P4_CONVERGE if converges else 1.0)
+        x = res["x"].to(dev)
+        relres = float((torch.linalg.vector_norm(prob.b - prob.A @ x, dim=0)
+                        / torch.linalg.vector_norm(prob.b, dim=0)).max())
+        check(ok and math.isfinite(relres),
+              f"{tag}: the residual falls"
+              + (f" {1 / P4_CONVERGE:g}-fold" if converges else "")
+              + f" (largest last/first {fall:.4g}; column 0 "
+              f"{float(resid[0, 0]):.4g} -> {float(resid[-1, 0]):.4g}); "
+              f"rank 0's final relative residual (dense torch.matmul) "
+              f"{relres:.3e}")
+        lag = res["lag"]
+        overlapped = name.endswith("overlap") and name != "dense_gs overlap"
+        if overlapped:
+            rk = name.startswith("sparse_rk")
+            lock = scheduled_tau(P4, steps, shared_stream=rk,
+                                 local_sampling=rk)
+            check(lag is not None and int(lag[0]) == 0
+                  and bool((lag[1:] == (P4 - 1) * steps).all())
+                  and int(lag.max()) + lock <= res["tau"]
+                  == scheduled_tau(P4, steps, shared_stream=rk,
+                                   local_sampling=rk, overlap=True),
+                  f"{tag}: lag[0] = 0, lag[1:] = (P - 1) * L = "
+                  f"{(P4 - 1) * steps} ({sorted(set(lag.tolist()))}), "
+                  f"max(lag) + tau_lockstep = {int(lag.max()) + lock} <= "
+                  f"tau = {res['tau']}")
+        else:
+            check(lag is None, f"{tag}: no lag trace (lockstep rounds)")
+    a2a, ps = p4["sparse_rk a2a"], p4["sparse_rk psum (banded CSR)"]
+    reduce_s, bcast_s = plan = _rk_a2a_plan(band_csr.slab_neighbors(P4), P4)
+    want_a2a = _sync_bytes_per_round("sparse_rk", n=SPD_N, k=K,
+                                     num_workers=P4, sync="a2a",
+                                     a2a_schedule=plan)
+    check(all(torch.equal(a2a[f], ps[f]) for f in ("x", "resid"))
+          and a2a["ranks"][0][2] == ps["ranks"][0][2],
+          f"P = {P4} Kaczmarz on the banded problem in CSR: the a2a "
+          "exchange's x and residuals bitwise the psum's (SHA-256 "
+          f"{a2a['ranks'][0][2][:16]})")
+    check([len(p) for p in reduce_s] == [P4 - 1, 0, P4 - 1]
+          and [len(p) for p in bcast_s] == [P4 - 1, 0, P4 - 1]
+          and a2a["bytes_per_round"] == want_a2a
+          < ps["bytes_per_round"] == 4.0 * SPD_N * K,
+          f"P = {P4} a2a on the banded CSR: a chain of column slabs "
+          f"(reduce pairs {[len(p) for p in reduce_s]}), "
+          f"{a2a['bytes_per_round']:g} bytes a rank and round against the "
+          f"psum's {ps['bytes_per_round']:g}")
+    auto, psum = p4["sparse_rk auto"], p4["sparse_rk"]
+    check(bool(skew_csr.slab_neighbors(P4).all())
+          and all(torch.equal(auto[f], psum[f]) for f in ("x", "resid"))
+          and auto["bytes_per_round"] == psum["bytes_per_round"]
+          == 4.0 * LSQ_N * K,
+          f"P = {P4} sparse_rk sync='auto' on the LSQ design (a dense "
+          "column graph): the psum, bitwise the psum run")
+    fb = p4["dense_gs overlap"]
+    check(any("no overlapped-sync variant" in w for w in fb["warned"])
+          and torch.equal(fb["x"], p4["dense_gs"]["x"])
+          and fb["tau"] == p4["dense_gs"]["tau"],
+          f"P = {P4} dense_gs overlap: warned (no overlapped-sync variant) "
+          "and ran the lockstep rounds, x bitwise the dense_gs run's")
+    check(p4["dense_rk"]["tau"] == P4_DENSE_RK_STEPS - 1
+          and p4["dense_rk"]["bytes_per_round"] == 4.0 * LSQ_N * K,
+          f"P = {P4} dense_rk: tau {p4['dense_rk']['tau']} = L - 1, "
+          f"{p4['dense_rk']['bytes_per_round']:g} bytes a round")
+    for c in ("bf16", "int8_ef"):
+        for name, f32, size, mult in (
+                (f"sparse_rk {c}", psum, LSQ_N * K, 1),
+                (f"halo_gs {c}", p4["halo_gs"], BANDS * BLOCK * K, 2)):
+            res = p4[name]
+            e = rel(res["x"], f32["x"])
+            check(res["bytes_per_round"] == mult * _payload_bytes(size, c)
+                  < f32["bytes_per_round"] and e <= INT8_EF_RTOL,
+                  f"P = {P4} {name}: {res['bytes_per_round']:g} bytes a rank "
+                  f"and round (f32 {f32['bytes_per_round']:g}); x within rel "
+                  f"{e:.3e} <= {INT8_EF_RTOL:g} of the f32 wire's")
 
 
 def banded_beyond_main(torch, ops, launcher, ref_banded, blocks, bands_list,
@@ -1244,7 +1671,18 @@ def sequential_cli_phase(torch, ops, lsq, launches) -> None:
         "launch.lsq --format dense": ("repro_torch.launch.lsq",
                                       ["--format", "dense"],
                                       ("[lsq]", "seq RK", "async RK",
-                                       "CG (A^T A)", "theory"))}
+                                       "par RK", "CG (A^T A)", "theory")),
+        f"launch.lsq --workers {P4}": (
+            "repro_torch.launch.lsq", ["--workers", str(P4)],
+            ("[lsq]", "seq RK", "async RK", "par RK", "CG (A^T A)",
+             "theory")),
+        f"launch.lsq --format csr --workers {P4} --rk-sync a2a --overlap "
+        "--compress int8_ef": (
+            "repro_torch.launch.lsq",
+            ["--format", "csr", "--workers", str(P4), "--rk-sync", "a2a",
+             "--overlap", "--compress", "int8_ef"],
+            ("[lsq]", "seq RK", "async RK", "par RK", "staleness",
+             "CG (A^T A)", "theory"))}
     t_children = time.perf_counter()
     procs = {what: subprocess.Popen(
         [sys.executable, "-m", mod, *argv], cwd=ROOT,
@@ -1317,6 +1755,16 @@ def sequential_cli_phase(torch, ops, lsq, launches) -> None:
         check(proc.returncode == 0 and all(said.values()) and finite,
               f"(b) python -m repro_torch.{what} exited 0 with its lines "
               f"{', '.join(prefixes)}, every number finite")
+        if "par RK" in said:
+            par = said["par RK"]
+            workers = P4 if "--workers" in children[what][1] else 1
+            check(par.get("P") == workers and 0 <= par["resid"] < 1,
+                  f"(b) {what}: the distributed pass ran on {workers} "
+                  f"rank(s), tau {par.get('tau')}, beta~ "
+                  f"{par.get('beta~')}, relative residual {par['resid']:.3e}"
+                  f" < 1 (the start) ({par.get('s')} s a rank; the ranks "
+                  "time-slice one card)")
+            continue
         if "async RGS" not in said:
             continue
         workers = P4 if "--workers" in children[what][1] else 1
@@ -1368,22 +1816,30 @@ def sequential_cli_phase(torch, ops, lsq, launches) -> None:
 
     # launch.lsq in process: one sweep_rows_rk launch a sweep, a record a
     # sweep (one CSR matvec, two colsum); the async pass densifies (with
-    # the warning) and records through colsum; CG on the normal equations
-    # 1 + 4 an iteration.
+    # the warning) and records through colsum; the distributed pass at
+    # P = 1 in process, sparse_rk, a round a sweep (one
+    # sweep_rows_rk_delta, one spmv_ell, two colsum); CG on the normal
+    # equations 1 + 4 an iteration.
     argv = ("--format", "csr", "--m", str(LSQ_M), "--n", str(LSQ_N), "--rhs",
             str(K), "--sweeps", str(CLI_LSQ_SWEEPS), "--tau", str(CLI_TAU))
     (res, text, warned), wall = counted(
         f"(a) launch.lsq {' '.join(argv)}",
         {"sweep_rows_rk": CLI_LSQ_SWEEPS, "spmv_csr_sliced": CLI_LSQ_SWEEPS,
-         "colsum": 4 * CLI_LSQ_SWEEPS + 1 + 4 * CLI_LSQ_SWEEPS},
+         "sweep_rows_rk_delta": CLI_LSQ_SWEEPS, "spmv_ell": CLI_LSQ_SWEEPS,
+         "colsum": 4 * CLI_LSQ_SWEEPS + 1 + 4 * CLI_LSQ_SWEEPS
+         + 2 * CLI_LSQ_SWEEPS},
         lambda: in_process(lsq_cli, argv))
-    seq, asy, cgn, th = (cli_numbers(text, p) for p in (
-        "seq RK", "async RK", "CG (A^T A)", "theory"))
+    seq, asy, par, cgn, th = (cli_numbers(text, p) for p in (
+        "seq RK", "async RK", "par RK", "CG (A^T A)", "theory"))
     check(all(math.isfinite(d.get("resid", math.nan)) and d["resid"] < 1.0
-              for d in (seq, asy, cgn)),
+              for d in (seq, asy, par, cgn)),
           f"(a) launch.lsq: relative residuals finite and below 1, the "
           f"start (seq RK {seq.get('resid')}, async RK {asy.get('resid')}, "
-          f"CG {cgn.get('resid')})")
+          f"par RK {par.get('resid')}, CG {cgn.get('resid')})")
+    check(par.get("P") == 1 and par.get("tau") == 0
+          and res["par"].bytes_per_round == 0.0,
+          f"(a) launch.lsq: the distributed pass at P = 1 on the one card "
+          f"(tau {par.get('tau')}, no exchange, {par.get('s')} s)")
     check(unit(asy.get("beta~", 0)) and unit(th.get("sync", 0))
           and unit(th.get(f"async(tau={CLI_TAU})", 0)),
           f"(a) launch.lsq: 0 < beta~ = {asy.get('beta~')} <= 1, rate "
@@ -1580,6 +2036,7 @@ def main() -> int:
                                  block_banded_spd, laplacian_spd,
                                  random_sparse_lsq, random_sparse_spd, solve)
         from repro_torch.core import ell_from_dense
+        from repro_torch.core import partition, theory
         from repro_torch.core.distributed import (_a2a_plan,
                                                   _sync_bytes_per_round)
         from repro_torch.core.engine import (draw_picks, record_metrics,
@@ -2906,6 +3363,31 @@ def main() -> int:
     check(e <= SWEEP_RTOL, f"distributed dense_gs and banded_gs at P = 1, "
           f"same picks: rel err of x {e:.3e} <= {SWEEP_RTOL:g}")
 
+    print("== the rest of the distributed engine at P = 1: dense_rk, "
+          "compress, overlap, partition='balanced'", flush=True)
+    rest = engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches)
+    dense = rest["dense"]
+    dense_beta = theory.beta_opt_rk(rest["rho"], P4_DENSE_RK_STEPS - 1)
+    # the LSQ design with its first quarter of rows scaled P4_SKEW-fold:
+    # contiguous slabs carry unequal norm mass, the balanced ones within
+    # 2x of uniform
+    A_skew = lsq.A.clone()
+    A_skew[:LSQ_M // 4] *= P4_SKEW
+    skew = lsq._replace(A=A_skew, b=A_skew @ lsq.x_star)
+    skew_csr = as_operator(A_skew, "csr")
+    rn_skew = skew_csr.row_norms_sq()
+    uniform = float(rn_skew.double().sum()) / P4
+    mass = partition.slab_norm_mass(
+        rn_skew, partition.balanced_row_permutation(skew_csr, P4).perm, P4)
+    contiguous = partition.slab_norm_mass(
+        rn_skew, torch.arange(LSQ_M, device=dev), P4)
+    check(mass.max() <= 2 * uniform < contiguous.max(),
+          f"the norm-skewed LSQ design at P = {P4}: balanced slabs carry "
+          f"{', '.join(f'{v / uniform:.3f}' for v in mass)} of the uniform "
+          f"norm mass (within 2x), contiguous slabs "
+          f"{', '.join(f'{v / uniform:.3f}' for v in contiguous)}")
+    del A_skew
+
     print(f"== P = {P4}: {P4} processes sharing the card, gloo over CUDA "
           "tensors", flush=True)
     # The problems are built once, here; the ranks rebuild the operators
@@ -2931,6 +3413,10 @@ def main() -> int:
             **csr_arrays("lsq", ops_by[("lsq", None)]),
             **csr_arrays("spd", ops_by[("spd", None)]),
             **csr_arrays("lap", lap_csr),
+            **csr_arrays("skew", skew_csr),
+            skew_b=skew.b.cpu(), skew_x_star=skew.x_star.cpu(),
+            dense_A=dense.A.cpu(), dense_b=dense.b.cpu(),
+            dense_x_star=dense.x_star.cpu(), dense_beta=dense_beta,
             tiles=ops_by[("banded", None)].A_bands.cpu(),
             lsq_b=lsq.b.cpu(), lsq_x_star=lsq.x_star.cpu(),
             spd_b=spd.b.cpu(), spd_x_star=spd.x_star.cpu(),
@@ -3031,7 +3517,10 @@ def main() -> int:
     e = rel(p4["dense_gs"]["x"], p4["banded_gs"]["x"])
     check(e <= SWEEP_RTOL, f"P = {P4}: dense_gs and banded_gs, same block "
           f"picks: rel err of x {e:.3e} <= {SWEEP_RTOL:g}")
-    del lap, lap_csr
+    p4_rest_checks(torch, ops, p4, lsq=lsq, banded=banded, spd=spd,
+                   dense=dense, skew=skew, skew_csr=skew_csr,
+                   band_csr=as_operator(banded.A, "csr"))
+    del lap, lap_csr, skew, skew_csr
 
     def a_rel(prob, res):
         return float((res.err_sq[-1] / a_norm_sq(prob.A, prob.x_star)).mean())
@@ -3134,7 +3623,8 @@ def main() -> int:
         lambda: ref.sweep_rows_rk_delta_ref(*args, x_lsq, d_lsq, picks),
         picks, lambda z: 6 * z * K + 3 * K, 4,
         "src/repro/kernels/sweep_csr.py:258", carries=2, global_ms=global_ms,
-        global_max_abs_err=errs["sweep_rows_rk_delta_global"])
+        global_max_abs_err=errs["sweep_rows_rk_delta_global"],
+        **rest["extra"])
     full_delta = sample_rows(rn_l, LSQ_M, generator=gen)
     vals_f, cols_f = op_l.padded_rows()
     zero_l = torch.zeros_like(x_lsq)

@@ -5,9 +5,10 @@ engine with its front door ``solve``, its bounded-delay simulator
 the dense GS wrappers (``rgs``, ``async_rgs``), the CG baselines
 (``cg``), the rate formulas (``theory``) and the distributed engine on
 ``torch.distributed`` (``distributed``) with its GS wrappers
-(``parallel_rgs``)."""
+(``parallel_rgs``), ``parallel_rk_solve`` and its slab assignment
+(``partition``)."""
 
-from repro_torch.core import distributed, engine, theory
+from repro_torch.core import distributed, engine, partition, theory
 from repro_torch.core.async_rgs import async_rgs_solve, iteration_identity_gap
 from repro_torch.core.cg import cg_solve, fcg_solve, make_rgs_preconditioner
 from repro_torch.core.distributed import solve_distributed
@@ -18,9 +19,9 @@ from repro_torch.core.engine import (BatchedSolveResult,
                                      sequential_chunk, solve, solve_async_sim,
                                      solve_batched, solve_sequential)
 from repro_torch.core.kaczmarz import (LSQProblem, async_rk_solve,
-                                       random_lsq, random_sparse_lsq,
-                                       rk_effective_tau, rk_solve,
-                                       row_norms_sq)
+                                       parallel_rk_solve, random_lsq,
+                                       random_sparse_lsq, rk_effective_tau,
+                                       rk_solve, row_norms_sq)
 from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp, EllOp,
                                         as_operator)
 from repro_torch.core.parallel_rgs import (effective_tau, parallel_rgs_banded,
@@ -62,6 +63,8 @@ __all__ = [
     "parallel_rgs_banded",
     "parallel_rgs_halo",
     "parallel_rgs_solve",
+    "parallel_rk_solve",
+    "partition",
     "random_lsq",
     "random_sparse_lsq",
     "random_sparse_spd",

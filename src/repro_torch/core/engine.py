@@ -37,10 +37,13 @@ The serving unit is ``sequential_chunk`` (one record chunk: the sweep and
 the residual) and ``solve_batched`` (chunks with per-column tolerances and
 early exit), which ``serve/`` drives.
 
-Not ported yet: the distributed RK a2a exchange, ``dense_rk``,
-``overlap``, ``compress`` and ``partition="balanced"`` (ROADMAP queue 1
-item 8), and block GS with ``gs_block > 1`` on the CSR format (queue 1
-item 3).
+A distributed ``Schedule`` also carries the slab assignment
+(``partition``), the overlapped sync (``overlap``) and the wire codec
+(``compress``); ``PARTITIONS``, ``COMPRESS_MODES`` and ``supported_syncs``
+are the vocabularies every validation error and CLI ``choices=`` read.
+
+Not ported yet: block GS with ``gs_block > 1`` on the CSR format (ROADMAP
+queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -56,6 +59,40 @@ from repro_torch.kernels import ops
 from repro_torch.tune import runtime as tune_runtime
 
 
+#: distributed slab assignments understood by ``Schedule.partition``
+PARTITIONS = ("contiguous", "balanced")
+
+#: wire codecs understood by ``Schedule.compress`` (int8 blocks with error
+#: feedback, round-to-nearest bf16; "none" is the exact f32 wire)
+COMPRESS_MODES = ("none", "bf16", "int8_ef")
+
+
+def supported_syncs(action, formats=None):
+    """Sync modes the distributed engine's strategy table has a row for,
+    for ``action``; ``formats`` (operator class names) narrows the answer
+    to the formats a caller can build (the CLIs' ``choices=``)."""
+    from repro_torch.core.distributed import _DISTRIBUTED_STRATEGIES
+    return tuple(sorted({
+        s for (a, f, s) in _DISTRIBUTED_STRATEGIES
+        if a == action and (formats is None or f in formats)}))
+
+
+def _warn_overlap_fallback(op, action, kind):
+    warnings.warn(
+        f"overlap=True: the {kind!r} strategy (action={action!r} x "
+        f"{type(op).__name__}) has no overlapped-sync variant; running "
+        "lockstep rounds (exact fallback — iterates unchanged)",
+        UserWarning, stacklevel=3)
+
+
+def _warn_compress_fallback(op, action, kind, compress):
+    warnings.warn(
+        f"compress={compress!r}: the {kind!r} strategy (action={action!r} x "
+        f"{type(op).__name__}) has no compressed wire format; running the "
+        "f32 payload (exact fallback — iterates unchanged)",
+        UserWarning, stacklevel=3)
+
+
 class SolveResult(NamedTuple):
     x: torch.Tensor        # (n, k) final iterate
     err_sq: torch.Tensor   # (records, k) squared error at each record point
@@ -64,16 +101,23 @@ class SolveResult(NamedTuple):
 
 
 class ParallelSolveResult(NamedTuple):
-    x: torch.Tensor        # (n, k) GS: the assembled iterate; RK: the
-                           # calling rank's replica
+    x: torch.Tensor        # (n, k) the assembled iterate, the same on
+                           # every rank (RK where P does not divide n:
+                           # the calling rank's replica)
     err_sq: torch.Tensor   # (rounds, k)
     resid: torch.Tensor    # (rounds, k)
     tau: int               # effective staleness bound of the schedule
-    #: per-round measured exchange lag of the overlapped sync; the port
-    #: has no overlapped sync yet, so it is always None.
+    #: per-round measured exchange lag (overlap=True only, else None),
+    #: (rounds,) int32: lag[r] = max over ranks of the foreign updates
+    #: committed by the end of round r-1 that the rank's round-r reads do
+    #: NOT see.  The empirical staleness of a run is ``max(lag) +
+    #: scheduled_tau(...)`` with ``overlap=False``, which the schedule
+    #: keeps <= ``scheduled_tau(..., overlap=True)`` == ``tau``.
     lag: torch.Tensor | None = None
     #: analytic per-round wire volume: bytes one rank contributes to the
-    #: sync collective each round (0 at P = 1, where none runs).
+    #: sync collective each round under the dispatched strategy, sync and
+    #: codec (averaged over the ranks for the a2a exchanges; 0 at P = 1,
+    #: where none runs).
     bytes_per_round: float | None = None
 
 
@@ -137,15 +181,25 @@ class Schedule(NamedTuple):
       updates each, a sync and a record after every round (needs a
       process group).
 
-    The reference's distributed ``partition``/``overlap``/``compress`` are
-    not ported yet (ROADMAP queue 1 item 8); they come with the code that
-    reads them.
+    Distributed only: ``partition`` picks the slab assignment
+    (``"contiguous"``, rows in index order, or ``"balanced"``, the
+    norm/nnz-balanced row permutation of ``core.partition``, CSR and ELL
+    only); ``overlap`` double-buffers the sync (round r's exchange carries
+    the payload captured at the end of round r-1, so reads are one round
+    staler and tau grows by ``scheduled_tau``'s overlap term; strategies
+    without an overlapped variant run lockstep rounds with a warning);
+    ``compress`` is the wire format of the sync payload (``"none"``,
+    ``"bf16"``, ``"int8_ef"``; strategies without a compressed wire run
+    the f32 payload with a warning).
     """
     num_iters: int = 0
     rounds: int = 0
     local_steps: int = 0
     tau: int = 0
     record_every: int = 0
+    partition: str = "contiguous"
+    overlap: bool = False
+    compress: str = "none"
 
     @property
     def distributed(self) -> bool:
@@ -164,6 +218,14 @@ class Schedule(NamedTuple):
                 f"a distributed Schedule needs local_steps > 0 (got {self})")
         if self.tau < 0:
             raise ValueError(f"tau must be >= 0 (got {self})")
+        if self.partition not in PARTITIONS:
+            raise ValueError(
+                f"unknown partition: {self.partition!r} (expected one of "
+                f"{PARTITIONS})")
+        if self.compress not in COMPRESS_MODES:
+            raise ValueError(
+                f"unknown compress: {self.compress!r} (expected one of "
+                f"{COMPRESS_MODES})")
         if not self.distributed:
             if self.num_iters <= 0:
                 raise ValueError(
@@ -173,7 +235,30 @@ class Schedule(NamedTuple):
                 raise ValueError(
                     "local_steps without rounds is ambiguous — set rounds > 0 "
                     f"for distributed execution (got {self})")
+            if self.partition != "contiguous":
+                raise ValueError(
+                    "partition='balanced' is a distributed-schedule option "
+                    f"(slab assignment needs rounds/local_steps) — got {self}")
+            if self.overlap:
+                raise ValueError(
+                    "overlap=True is a distributed-schedule option (the "
+                    "double-buffered sync needs rounds/local_steps) — got "
+                    f"{self}")
+            if self.compress != "none":
+                raise ValueError(
+                    "compress is a distributed-schedule option (there is no "
+                    "sync payload to compress without rounds/local_steps) — "
+                    f"got {self}")
         return self
+
+    def effective_tau(self, num_workers: int, *, shared_stream: bool = False,
+                      local_sampling: bool = False) -> int:
+        if self.distributed:
+            return scheduled_tau(num_workers, self.local_steps,
+                                 shared_stream=shared_stream,
+                                 local_sampling=local_sampling,
+                                 overlap=self.overlap)
+        return self.tau
 
 
 def record_metrics(op, b, x, x_star, *, norm: str):
@@ -732,10 +817,10 @@ def solve(
     ``torch.distributed`` process group ``group`` (the counterpart of the
     reference's ``mesh``): every rank calls ``solve`` with the whole
     problem, ``sync`` picks the collective, the streams come from
-    ``seed`` (the same on every rank) or from ``picks``, and
+    ``seed`` (the same on every rank) or from ``picks``, the schedule's
+    ``partition``, ``overlap`` and ``compress`` pass through, and
     ``with_metrics=False`` leaves the records zero; the result is a
-    ``ParallelSolveResult`` holding the assembled iterate (GS) or the
-    calling rank's replica (Kaczmarz).
+    ``ParallelSolveResult`` (see ``solve_distributed`` for its ``x``).
     """
     if action is None:
         action = "rk" if hasattr(problem, "sigma_min") else "gs"
@@ -765,7 +850,8 @@ def solve(
             op, problem.b, x0, problem.x_star, action=action, group=group,
             rounds=schedule.rounds, local_steps=schedule.local_steps,
             block=gs_block, beta=beta, sync=sync, seed=seed, picks=picks,
-            with_metrics=with_metrics)
+            with_metrics=with_metrics, partition=schedule.partition,
+            overlap=schedule.overlap, compress=schedule.compress)
     if seed is not None:
         raise ValueError("a sequential solve draws its stream from "
                          "generator= (or takes picks=), not from seed=")

@@ -12,8 +12,8 @@ simulator) are thin wrappers over the engine's ``"rk"`` action on a
 ``DenseOp``.  They take ``generator=``/``picks=`` (and
 ``delay_generator=``/``delays=``) where the reference takes ``jax.random``
 keys: different streams, so the tests hand the port the reference's.
-``parallel_rk_solve`` is not ported yet: its dense strategy belongs to the
-distributed engine's rest (ROADMAP queue 1 item 8).
+``parallel_rk_solve`` is the distributed engine's ``dense_rk`` strategy on
+a ``torch.distributed`` process group.
 """
 from __future__ import annotations
 
@@ -22,13 +22,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine import (SolveResult, scheduled_tau,
-                                     solve_async_sim, solve_sequential)
+from repro_torch.core.engine import (ParallelSolveResult, SolveResult,
+                                     scheduled_tau, solve_async_sim,
+                                     solve_sequential)
 from repro_torch.core.operators import DenseOp
 from repro_torch.core.spd import resolve_device
 
-__all__ = ["LSQProblem", "async_rk_solve", "random_lsq", "random_sparse_lsq",
-           "rk_effective_tau", "rk_solve", "row_norms_sq"]
+__all__ = ["LSQProblem", "async_rk_solve", "parallel_rk_solve",
+           "random_lsq", "random_sparse_lsq", "rk_effective_tau", "rk_solve",
+           "row_norms_sq"]
 
 
 class LSQProblem(NamedTuple):
@@ -172,3 +174,38 @@ def rk_effective_tau(num_workers: int, local_steps: int) -> int:
     (``engine.scheduled_tau(shared_stream=True)``): within a round a pick
     misses at most the other workers' earlier in-round updates."""
     return scheduled_tau(num_workers, local_steps, shared_stream=True)
+
+
+def parallel_rk_solve(
+    A: torch.Tensor,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    x_star: torch.Tensor | None,
+    *,
+    group,
+    rounds: int,
+    local_steps: int,
+    beta: float = 1.0,
+    seed: int | None = None,
+    picks: torch.Tensor | None = None,
+) -> ParallelSolveResult:
+    """Distributed asynchronous RK: rows cut into P slabs (owner
+    computes); call it on every rank of ``group``.
+
+    The schedule is one global i.i.d. row stream of ``rounds *
+    local_steps`` picks (from ``seed``, the same on every rank, else
+    ``picks`` of shape ``(rounds, local_steps)``, global row ids),
+    partitioned by row owner: within a round every rank applies its own
+    picks with fresh reads while the other ranks' updates stay invisible
+    until the round's delta sum, with scheduled staleness
+    ``rk_effective_tau(P, local_steps)``.  At P = 1 every pick is owned
+    and nothing is exchanged.  ``err_sq``/``resid`` are recorded once a
+    round.  Where the reference takes ``mesh``/``key`` this takes
+    ``group`` and ``seed`` or ``picks``; its ``unroll`` has no
+    counterpart (each round's local phase is one kernel launch).
+    """
+    from repro_torch.core.distributed import solve_distributed
+    return solve_distributed(
+        DenseOp(A), b, x0, x_star, action="rk", group=group, rounds=rounds,
+        local_steps=local_steps, beta=beta, sync="psum", seed=seed,
+        picks=picks)

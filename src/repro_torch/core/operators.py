@@ -18,9 +18,13 @@ The distributed engine's layout queries: ``halo_width`` (how far a row
 reads from itself: ``bands * block`` on the block-banded format, ``None``
 elsewhere), ``slab_neighbors(P)`` on CSR and ELL (which row slab reads
 which column slab, ``slab_neighbor_matrix``) and, for the banded records,
-``BlockBandedOp.window_tiles`` with ``banded_window_matvec``.  The
-reference's per-step shard helpers (``banded_panel_residual`` and its
-kin) have no port: the local phases are whole-round kernels.
+``BlockBandedOp.window_tiles`` with ``banded_window_matvec``; ``nnz_cost()``
+on every format (the stored coefficients a full read touches) and
+``CsrOp.row_reach()`` (each row's reach).  The reference's per-step shard
+helpers (``banded_panel_residual`` and its kin) have no port: the local
+phases are whole-round kernels.  Nor has its ``shard_spec`` (a
+``shard_map`` ``PartitionSpec``): a rank of the distributed engine takes
+its slab of an operator by slicing.
 """
 from __future__ import annotations
 
@@ -115,6 +119,20 @@ def slab_neighbor_matrix(rows: torch.Tensor, cols: torch.Tensor,
     return need
 
 
+def window_norms_sq(vals: torch.Tensor) -> torch.Tensor:
+    """Per-row sum of squares of (rows, width) windows in f32, each row's
+    terms added left to right over its slots: the order of the
+    reference's sums on the CPU (the CSR segment sum, the ELL einsum), so
+    the row norms, and the sampling and the balanced partition built on
+    them, are bitwise the reference's.  Padding slots hold 0 and add
+    nothing; a row's sum is the same from run to run on the card too."""
+    sq = vals.float() * vals.float()
+    acc = sq[:, 0].clone() if sq.shape[1] else sq.sum(1)
+    for j in range(1, sq.shape[1]):
+        acc = acc + sq[:, j]
+    return acc
+
+
 def banded_window_matvec(tiles: torch.Tensor, vw: torch.Tensor, *,
                          bands: int, block: int) -> torch.Tensor:
     """``(A v)`` for a run of block rows from their halo-padded window
@@ -197,6 +215,10 @@ class DenseOp:
             g = (b[r] - self.A[r].to(x.dtype) @ x) / rn[r]
             x += beta * self.A[r].float()[:, None] * g[None, :]
         return x
+
+    def nnz_cost(self) -> int:
+        m, n = self.A.shape
+        return m * n
 
     def block_gs_sweep(self, b, x, blocks, *, block: int,
                        beta: float = 1.0) -> torch.Tensor:
@@ -298,6 +320,9 @@ class BlockBandedOp:
         t = self.A_bands.float()
         return (t * t).sum(dim=(1, 3))
 
+    def nnz_cost(self) -> int:
+        return self.nb * self.width * self.block * self.block
+
     def to_dense(self) -> torch.Tensor:
         nb, bl = self.nb, self.block
         out = torch.zeros((nb, bl, nb, bl), dtype=self.A_bands.dtype,
@@ -319,6 +344,7 @@ class EllOp:
         self.cols = cols
         self._row_counts = None
         self._stored = None
+        self._row_norms: torch.Tensor | None = None
         self._neighbors: dict[int, np.ndarray] = {}
 
     @classmethod
@@ -393,9 +419,15 @@ class EllOp:
                             counts=self.stop_counts(x.shape[1]))
 
     def row_norms_sq(self) -> torch.Tensor:
-        """Per-row ||A_i||² — always f32."""
-        v = self.vals.float()
-        return (v * v).sum(1)
+        """Per-row ||A_i||² — always f32, bitwise the reference's
+        (``window_norms_sq``), computed once."""
+        if self._row_norms is None:
+            self._row_norms = window_norms_sq(self.vals)
+        return self._row_norms
+
+    def nnz_cost(self) -> int:
+        n, w = self.vals.shape
+        return n * w
 
     def padded_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self.vals, self.cols
@@ -459,6 +491,7 @@ class CsrOp:
         self._panel_nnz: torch.Tensor | None = None
         self._has_empty_panel: bool | None = None
         self._panel0_tail: bool | None = None
+        self._row_norms: torch.Tensor | None = None
         self._neighbors: dict[int, np.ndarray] = {}
 
     @classmethod
@@ -569,6 +602,20 @@ class CsrOp:
                 self.row_id, self.indices, self.data != 0, m, n,
                 num_workers)
         return self._neighbors[num_workers]
+
+    def row_reach(self) -> torch.Tensor:
+        """Per-row reach ``max_j |col_ij - i|`` over the stored nonzeros,
+        (m,) int32 on the device: the per-row refinement of the scalar
+        ``halo_width`` (square systems; 0 for empty rows)."""
+        d = (self.indices.long() - self.row_id.long()).abs()
+        d = torch.where(self.data != 0, d, 0)
+        out = torch.zeros((self._shape[0],), dtype=torch.int64,
+                          device=self.device)
+        out.scatter_reduce_(0, self.row_id.long(), d, "amax")
+        return out.to(torch.int32)
+
+    def nnz_cost(self) -> int:
+        return self.nnz
 
     def padded_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(m, row_cap) per-row value/column windows with global column
@@ -707,12 +754,15 @@ class CsrOp:
                                 m=self._shape[0])
 
     def row_norms_sq(self) -> torch.Tensor:
-        """Per-row ||A_i||² — always f32, each row summed over its own
-        window (``padded_rows()``), so the result is the same from run to
-        run on the card too (a segment sum by ``index_add_`` adds with
-        atomics there, in no fixed order)."""
-        v = self.padded_rows()[0][:self._shape[0]].float()
-        return (v * v).sum(1)
+        """Per-row ||A_i||² — always f32, each row's squares added left to
+        right over its window (``padded_rows()``, ``window_norms_sq``):
+        bitwise the reference's segment sum, and the same from run to run
+        on the card too (a segment sum by ``index_add_`` adds with atomics
+        there, in no fixed order).  Computed once."""
+        if self._row_norms is None:
+            self._row_norms = window_norms_sq(
+                self.padded_rows()[0][:self._shape[0]])
+        return self._row_norms
 
     def gs_sweep(self, b, x, picks, *, beta: float = 1.0,
                  write_base: int = 0) -> torch.Tensor:

@@ -17,9 +17,9 @@ round and rank, on the card).
 The distributed pass runs on a gloo process group: at ``--workers 1`` in
 this process, above it in ``--workers`` spawned processes
 (``launch.mesh.run_workers``) that share the device (NCCL needs a card per
-rank).  Not ported yet (ROADMAP queue 1 item 8): the reference's
-``--partition``, ``--overlap`` and ``--compress``.  The reference's
-``--fused`` is gone: the port has one engine.  The sequential stream is a
+rank).  ``--partition``, ``--overlap`` and ``--compress`` set its
+``Schedule``; with ``--overlap`` a ``staleness`` line prints the measured
+lag.  The reference's ``--fused`` is gone: the port has one engine.  The sequential stream is a
 ``torch.Generator`` seeded 1 and the distributed one seed 2 (each rank's
 ``2 * P + rank``), not the reference's ``jax.random.key(1)`` and
 ``key(2)``, so residuals differ from the reference CLI's.
@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.core import (Schedule, cg_solve, random_sparse_spd, solve,
                               theory)
-from repro_torch.core.engine import scheduled_tau
+from repro_torch.core.engine import (COMPRESS_MODES, PARTITIONS,
+                                     scheduled_tau)
 from repro_torch.core.operators import STORAGE_DTYPES
 from repro_torch.launch.mesh import process_group, run_workers
 
@@ -59,15 +60,13 @@ def default_workers(device: torch.device) -> int:
 
 
 def distributed_pass(group, device, prob, job):
-    """The distributed GS solve of one rank; returns its result and the
-    rank's wall seconds (the operator's build included)."""
+    """The distributed solve of one rank (``job``: ``solve``'s keywords
+    under "solve", its ``Schedule``'s under "schedule"); returns its result
+    and the rank's wall seconds (the operator's build included)."""
     wait(device)
     t0 = time.perf_counter()
-    res = solve(prob, group=group, beta=job["beta"], format=job["format"],
-                width=job["width"], storage_dtype=job["storage_dtype"],
-                sync=job["sync"], seed=2,
-                schedule=Schedule(rounds=job["rounds"],
-                                  local_steps=job["local_steps"]))
+    res = solve(prob, group=group, **job["solve"],
+                schedule=Schedule(**job["schedule"]))
     wait(device)
     return res, time.perf_counter() - t0
 
@@ -78,6 +77,16 @@ def _rank(group, device, path, job):
     prob = prob._replace(**{f: getattr(prob, f).to(device)
                             for f in prob._fields})
     return distributed_pass(group, device, prob, job)
+
+
+def print_staleness(res, tau_lockstep: int, tau: int) -> None:
+    """The measured lag of an overlapped pass against its bound."""
+    if res.lag is None:
+        return
+    top = int(res.lag.max())
+    print(f"  staleness  : measured lag max={top} (round 1: "
+          f"{int(res.lag[0])}) -> empirical tau {top + tau_lockstep} <= "
+          f"scheduled bound {tau}")
 
 
 def run_distributed(prob, job, workers: int, device: torch.device):
@@ -110,10 +119,26 @@ def main(argv=None):
                          "sparsity-derived neighbor exchange) needs csr or "
                          "ell; halo belongs to the banded format, which this "
                          "CLI does not build")
+    ap.add_argument("--partition", choices=PARTITIONS,
+                    default="contiguous",
+                    help="distributed slab assignment: 'balanced' bin-packs "
+                         "rows by norm mass and nnz into the P slabs via a "
+                         "symmetric row permutation (csr or ell)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="double-buffered sync: each round installs the "
+                         "PREVIOUS round's exchange while sweeping, at the "
+                         "cost of one extra round of scheduled staleness "
+                         "(sparse strategies; dense falls back to lockstep "
+                         "with a warning)")
     ap.add_argument("--storage-dtype", choices=STORAGE_DTYPES, default=None,
                     help="precision the operator's coefficients are stored "
                          "in (row norms, iterate and accumulation stay "
                          "f32); default keeps the input dtype bitwise")
+    ap.add_argument("--compress", choices=COMPRESS_MODES, default="none",
+                    help="wire format of the distributed sync payload; the "
+                         "GS all-gather and a2a exchanges have no "
+                         "compressed wire, so a value other than 'none' "
+                         "falls back to the exact exchange with a warning")
     ap.add_argument("--workers", type=int, default=0,
                     help="ranks of the distributed pass (0 = all local "
                          "devices); above the device count they share one")
@@ -131,6 +156,9 @@ def main(argv=None):
     if args.sync == "halo":
         ap.error("--sync halo needs the banded format, which this CLI does "
                  "not build")
+    if args.partition == "balanced" and args.format == "dense":
+        ap.error("--partition balanced needs a sparse format "
+                 "(--format csr or ell)")
     device = torch.device(args.device)
 
     prob = random_sparse_spd(args.n, row_nnz=args.row_nnz,
@@ -164,17 +192,23 @@ def main(argv=None):
 
     workers = args.workers or default_workers(device)
     local_steps = args.local_steps or max(1, n // workers)
-    tau = scheduled_tau(workers, local_steps)
+    tau = scheduled_tau(workers, local_steps, overlap=args.overlap)
     beta = theory.beta_opt(rho, tau)
     rounds = max(1, iters // (workers * local_steps))
-    job = dict(beta=beta, format=args.format, width=args.ell_width,
-               storage_dtype=args.storage_dtype, sync=args.sync,
-               rounds=rounds, local_steps=local_steps)
+    job = dict(
+        solve=dict(beta=beta, format=args.format, width=args.ell_width,
+                   storage_dtype=args.storage_dtype, sync=args.sync, seed=2),
+        schedule=dict(rounds=rounds, local_steps=local_steps,
+                      partition=args.partition, overlap=args.overlap,
+                      compress=args.compress))
     pres, secs = run_distributed(prob, job, workers, device)
     print(f"  async RGS  : P={workers} tau={tau} beta~={beta:.3f} "
           f"format={args.format} sync={args.sync} "
           f"({pres.bytes_per_round:.0f} B/round) {rounds} rounds, resid "
-          f"{float(pres.resid[-1, 0]):.3e} ({secs:.3f}s)")
+          f"{float(pres.resid[-1, 0]):.3e} ({secs:.3f}s) "
+          f"partition={args.partition} overlap={args.overlap} "
+          f"compress={args.compress}")
+    print_staleness(pres, scheduled_tau(workers, local_steps), tau)
 
     wait(device)
     t0 = time.perf_counter()

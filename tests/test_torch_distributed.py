@@ -317,14 +317,9 @@ def test_distributed_errors(group):
         solve(p, format="csr", schedule=sched, group=group, sync="psum")
     with pytest.raises(ValueError, match="generator=.*not from seed="):
         solve(p, format="csr", schedule=Schedule(num_iters=8), seed=0)
-    # sync="auto" on CSR/ELL is the a2a exchange: not ported, names psum
-    for fmt in ("csr", "ell"):
-        with pytest.raises(NotImplementedError, match="sync='psum'"):
-            solve(p if fmt == "csr" else _problem("spd")[1], format=fmt,
-                  action="rk", schedule=sched, group=group, seed=0)
-    # any other row: the enumerating message, listing the port's rows
-    for fmt, action, sync in (("dense", "rk", "psum"), ("csr", "gs", "halo"),
-                              ("banded", "gs", "a2a")):
+    # a row no strategy serves: the enumerating message, listing the rows
+    for fmt, action, sync in (("dense", "rk", "a2a"), ("csr", "gs", "halo"),
+                              ("banded", "gs", "a2a"), ("csr", "rk", "halo")):
         prob = _problem("banded")[1] if fmt == "banded" else p
         with pytest.raises(NotImplementedError) as e:
             solve(prob, format=fmt, action=action, schedule=sched,
@@ -332,7 +327,7 @@ def test_distributed_errors(group):
         msg = str(e.value)
         assert "no distributed strategy" in msg
         assert all(f"format={f}" in msg
-                   for f in ("BlockBandedOp", "CsrOp", "EllOp"))
+                   for f in ("BlockBandedOp", "CsrOp", "DenseOp", "EllOp"))
     # picks of the wrong shape or range
     with pytest.raises(ValueError, match="picks has shape"):
         solve(p, format="csr", schedule=sched, group=group, sync="psum",

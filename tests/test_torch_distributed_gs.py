@@ -280,7 +280,7 @@ def test_parallel_rgs_wrappers_match_the_engine(group):
 def test_errors_match_reference(group):
     """Block GS on a sparse format, and combinations no strategy serves,
     raise as the reference does (the enumerating message lists the
-    port's rows); dense RK names what is left to port."""
+    port's rows, the reference's table)."""
     r, p = _problem("sparse")
     sched = Schedule(rounds=2, local_steps=8)
     msg = "block=2 is not supported for CsrOp"
@@ -307,10 +307,8 @@ def test_errors_match_reference(group):
         assert "no distributed strategy" in str(e.value)
         assert all(f"format={f}" in str(e.value) for f in (
             "BlockBandedOp", "CsrOp", "DenseOp", "EllOp"))
-    with pytest.raises(NotImplementedError, match="dense_rk is not ported "
-                                                  "yet.*item 8"):
-        solve(bp, format="dense", action="rk", sync="psum", group=group,
-              seed=0, schedule=sched)
+    assert (set(distributed._DISTRIBUTED_STRATEGIES.items())
+            == set(ref_engine._DISTRIBUTED_STRATEGIES.items()))
 
 
 def test_partition_checks():

@@ -114,6 +114,78 @@ def test_lsq_cli(capsys, fmt):
     assert out["async"].resid.shape == (2, 2)
 
 
+def test_lsq_cli_distributed_dense_four_ranks(capsys):
+    """The distributed pass at its defaults (dense: dense_rk, one global
+    stream) on four spawned gloo ranks; its residual finite and below the
+    start."""
+    out = lsq.main(["--device", "cpu", "--m", "256", "--n", "32", "--rhs",
+                    "2", "--sweeps", "2", "--tau", "8", "--workers", "4"])
+    line = _line(capsys.readouterr().out, "par RK")
+    assert "P=4 tau=63 " in line and "sampling=global-stream" in line
+    assert "(256 B/round) 8 rounds" in line
+    assert 0 <= _number(line, r"relresid ") < 1
+    par = out["par"]
+    assert par.resid.shape == (8, 2) and par.tau == 63 and par.lag is None
+    assert bool(torch.isfinite(par.resid).all())
+    assert bool((par.resid[-1] < par.resid[0]).all())
+
+
+def test_lsq_cli_distributed_csr_every_flag(capsys):
+    """csr on four ranks with a2a, overlap, the int8 wire and the balanced
+    partition: the compressed a2a falls back to the psum (the reference's
+    warning), the staleness line is printed, the residual falls."""
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        out = lsq.main(["--device", "cpu", "--m", "256", "--n", "32",
+                        "--rhs", "2", "--sweeps", "2", "--tau", "8",
+                        "--format", "csr", "--workers", "4", "--rk-sync",
+                        "a2a", "--overlap", "--compress", "int8_ef",
+                        "--partition", "balanced"])
+    text = capsys.readouterr().out
+    line = _line(text, "par RK")
+    assert "P=4 tau=447 " in line and "sampling=local" in line
+    assert ("sync=a2a partition=balanced overlap=True compress=int8_ef "
+            "(260 B/round) 2 rounds") in line
+    stale = _line(text, "staleness")
+    assert "measured lag max=192 (round 1: 0)" in stale
+    assert "empirical tau 447 <= scheduled bound 447" in stale
+    par = out["par"]
+    assert par.lag.tolist() == [0, 192]
+    assert bool(torch.isfinite(par.resid).all())
+    assert bool((par.resid[-1] < par.resid[0]).all())
+    for argv in (["--rk-sync", "a2a"], ["--partition", "balanced"],
+                 ["--compress", "bf16"]):
+        with pytest.raises(SystemExit):
+            lsq.main(["--device", "cpu", "--m", "32", "--n", "8", *argv])
+
+
+def test_solve_cli_balanced_overlap(capsys):
+    """launch.solve's distributed pass on two ranks, CSR, with the balanced
+    partition and the overlapped sync: the staleness line, the lag, and
+    the iterate of the original (un-permuted) system."""
+    out = solve.main(["--device", "cpu", "--n", "64", "--rhs", "2",
+                      "--sweeps", "3", "--format", "csr", "--workers", "2",
+                      "--partition", "balanced", "--overlap"])
+    text = capsys.readouterr().out
+    line = _line(text, "async RGS")
+    assert "P=2 tau=64 " in line
+    assert line.endswith("partition=balanced overlap=True compress=none")
+    assert "empirical tau 64 <= scheduled bound 64" in _line(text,
+                                                             "staleness")
+    res, prob = out["async"], out["problem"]
+    assert res.lag.tolist() == [0] + [32] * 2
+    # x comes back in the original row order: its residual in the
+    # original system is the last record's to within the one round of
+    # staleness the record's replica carries (a permuted x would miss by
+    # the size of b)
+    r = torch.linalg.vector_norm(prob.b - prob.A @ res.x, dim=0)
+    assert torch.allclose(r, res.resid[-1], rtol=5e-2)
+    assert bool((res.resid[-1] < res.resid[0]).all())
+    with pytest.raises(SystemExit):
+        solve.main(["--device", "cpu", "--n", "32", "--partition",
+                    "balanced"])
+
+
 @pytest.mark.parametrize("module,argv", [
     ("repro_torch.launch.solve", ["--n", "64", "--rhs", "2", "--sweeps", "2",
                                   "--format", "csr"]),
