@@ -489,7 +489,8 @@ def p4_rank(group, device, path):
     return out
 
 
-def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches) -> dict:
+def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches,
+                         smi: str) -> dict:
     """The rest of the distributed engine at P = 1 in this process, on a
     world-size-1 gloo group: dense_rk at full width (its local phase's
     kernel first held to the plain version at the dense window shape),
@@ -515,7 +516,8 @@ def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches) -> dict:
         wall = time.perf_counter() - t0
         got = ops.launch_counts()
         check(got == {name: expect.get(name, 0) for name in ops.KERNELS},
-              f"{tag}: launched exactly {expect} ({wall:.4f} s wall)")
+              f"{tag}: launched exactly {expect} ({wall:.4f} s wall on "
+              f"{smi})")
         for name, n in got.items():
             launches[name] += n
         return out
@@ -692,12 +694,12 @@ def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches) -> dict:
     check(math.isfinite(relres), f"dense_rk at P = 1: largest final "
           f"relative residual {relres:.4e} after {R * L} picks")
     print(f"  the rest of the engine at P = 1: "
-          f"{time.perf_counter() - t_phase:.2f} s wall", flush=True)
+          f"{time.perf_counter() - t_phase:.2f} s wall ({smi})", flush=True)
     return dict(dense=dense, rho=rho, extra=extra)
 
 
 def p4_rest_checks(torch, ops, p4, *, lsq, banded, spd, dense, skew,
-                   skew_csr, band_csr) -> None:
+                   skew_csr, band_csr, smi: str) -> None:
     """The checks of the P = 4 runs of the rest of the engine (p4_rank):
     each rank's launches exactly, x the same on every rank, the Kaczmarz
     a2a exchange bitwise the psum with fewer bytes, sync="auto" bitwise
@@ -752,7 +754,7 @@ def p4_rest_checks(torch, ops, p4, *, lsq, banded, spd, dense, skew,
         print(f"  {tag}: wall s per rank "
               + ", ".join(f"{w:.3f}" for w in walls)
               + f" ({1e3 * max(walls) / rounds:.2f} ms a round at the "
-              "slowest rank; four CUDA contexts time-slice one card)",
+              f"slowest rank; four CUDA contexts time-slice one card: {smi})",
               flush=True)
         for rank, (counts, _, _) in enumerate(res["ranks"]):
             check(counts == {k: expect.get(k, 0) for k in ops.KERNELS},
@@ -3365,7 +3367,7 @@ def main() -> int:
 
     print("== the rest of the distributed engine at P = 1: dense_rk, "
           "compress, overlap, partition='balanced'", flush=True)
-    rest = engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches)
+    rest = engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches, smi)
     dense = rest["dense"]
     dense_beta = theory.beta_opt_rk(rest["rho"], P4_DENSE_RK_STEPS - 1)
     # the LSQ design with its first quarter of rows scaled P4_SKEW-fold:
@@ -3519,7 +3521,7 @@ def main() -> int:
           f"picks: rel err of x {e:.3e} <= {SWEEP_RTOL:g}")
     p4_rest_checks(torch, ops, p4, lsq=lsq, banded=banded, spd=spd,
                    dense=dense, skew=skew, skew_csr=skew_csr,
-                   band_csr=as_operator(banded.A, "csr"))
+                   band_csr=as_operator(banded.A, "csr"), smi=smi)
     del lap, lap_csr, skew, skew_csr
 
     def a_rel(prob, res):
