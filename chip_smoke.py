@@ -11,7 +11,10 @@ launch per record chunk): randomized Gauss-Seidel on
 ``random_sparse_spd(16384)`` through the CSR and the ELL formats, and on
 ``block_banded_spd(16384, block=128, bands=2)`` through the block-banded
 format and through dense block Gauss-Seidel (``format="dense",
-gs_block=128``); randomized Kaczmarz on ``random_sparse_lsq(32768, 4096)``
+gs_block=128``), and block Gauss-Seidel on CSR (``format="csr",
+gs_block=`` 8 and 128, f32 and bf16, its sweep kernel held to its plain
+version, bitwise ``sweep_rows_gs`` at block 1 and across its two paths,
+chained serving chunks bitwise the one-shot solve); randomized Kaczmarz on ``random_sparse_lsq(32768, 4096)``
 through CSR.  It drives the CSR matvec seam (``CsrOp.matvec(variant=)``
 for all four variants, ``matvec_segsum``), runs the autotuner CLI in a
 child process and a CSR solve under the table it wrote.  It drives the
@@ -294,6 +297,15 @@ SIM_RK_M, SIM_RK_N, SIM_RK_K, SIM_RK_SWEEPS, SIM_RK_TAU = 4096, 512, 8, 1, 32
 # block_gs_sweep launch an application), FCG_ITERS iterations against
 # plain CG (the reference's tests/test_cg.py claims).
 FCG_SIDE, FCG_BLOCK, FCG_SWEEPS, FCG_ITERS = 128, 128, 2, 12
+# Block GS on CSR (csr_block_gs_phase): solve(format="csr", gs_block=B) on
+# the main SPD problem, CSR_BGS_SWEEPS sweeps of SPD_N // B picks (one
+# record a sweep) at each B of CSR_BGS_BLOCKS with f32 storage, and at the
+# last B with bf16; SERVE_CHAIN serving chunks of a sweep each.  The
+# kernel is held to its plain version on short streams at the blocks of
+# CSR_BGS_CHECK (block: picks): 30 leaves a partial group of a warp's rows,
+# 1000 (past the dense kernel's 256) leaves 384 rows in no panel.
+CSR_BGS_BLOCKS, CSR_BGS_SWEEPS, CSR_BGS_SEED = (8, 128), 10, SEED + 51
+CSR_BGS_CHECK = {8: 256, 30: 64, 128: 32, 1000: 4}
 # Lanczos (64 iterations) against eigvalsh at SIM_N; rk_rho of the main
 # LSQ design in f32 against the same function in f64 by row blocks.
 LANCZOS_RTOL, RK_RHO_RTOL = 1e-3, 1e-4
@@ -2020,8 +2032,154 @@ def sequential_cli_phase(torch, ops, lsq, launches) -> None:
           "wall", flush=True)
 
 
-def main() -> int:
-    import torch
+def csr_block_gs_phase(torch, ops, ref, sweep_csr, spd, drive, smi):
+    """Block GS on CSR at the main path's width (k = K): the block sweep
+    kernel against its plain version (f32 and bf16 storage), at block 1
+    bitwise ``sweep_rows_gs``, its two paths bitwise equal, column 0 at
+    k = K bitwise k = 1; ``solve(format="csr", gs_block=B)`` through
+    ``drive`` (exactly one sweep launch a record chunk), the residual
+    falling and the A-norm error non-increasing over its sweeps, the final
+    residual against dense ``torch.matmul`` (of the stored coefficients);
+    chained serving chunks bitwise ``solve_sequential``; a chunk's time
+    from Python and from a CUDA graph at each block, the paths in turns.
+    Returns the solves with their keywords (for the solo column checks)
+    and what the kernel's JSON entry needs."""
+    from repro_torch import Schedule, a_norm_sq, as_operator, solve
+    from repro_torch.core.engine import sequential_chunk, solve_sequential
+
+    dev = spd.A.device
+    n = SPD_N
+    gen = torch.Generator(dev).manual_seed(CSR_BGS_SEED)
+    x0 = torch.randn((n, K), generator=gen, device=dev)
+    csr = {sd: as_operator(spd.A, "csr", storage_dtype=sd)
+           for sd in (None, "bfloat16")}
+    errs = {}
+    for sd, op in csr.items():
+        tag = "f32/i32" if sd is None else "bf16/i16"
+        vals, cols = op.padded_rows()
+        for blk, steps in CSR_BGS_CHECK.items():
+            picks = torch.randint(0, n // blk, (steps,), generator=gen,
+                                  device=dev)
+            got = ops.sweep_rows_block_gs(vals, cols, spd.b, x0, picks,
+                                          block=blk, beta=0.9)
+            want = ref.sweep_rows_block_gs_ref(vals, cols, spd.b, x0, picks,
+                                               block=blk, beta=0.9)
+            torch.cuda.synchronize()
+            e = rel(got, want)
+            check(e <= SWEEP_RTOL, f"sweep_rows_block_gs {tag} n={n} k={K} "
+                  f"block {blk}, {steps} picks: rel err {e:.3e} <= "
+                  f"{SWEEP_RTOL:g}")
+            errs[(sd, blk)] = float((got - want).abs().max())
+            p32 = picks.to(torch.int32)
+            paths = [sweep_csr.sweep_rows_block_gs(
+                vals, cols, spd.b, x0, p32, block=blk, beta=0.9,
+                limit=n // blk, _shared=shared) for shared in (True, False)]
+            check(all(torch.equal(p, got) for p in paths),
+                  f"sweep_rows_block_gs {tag} block {blk}: the shared-memory "
+                  "and the global path bitwise equal")
+            one = ops.sweep_rows_block_gs(
+                vals, cols, spd.b[:, :1].contiguous(),
+                x0[:, :1].contiguous(), picks, block=blk, beta=0.9)
+            check(torch.equal(one[:, 0], got[:, 0]),
+                  f"sweep_rows_block_gs {tag} block {blk}: column 0 at k={K} "
+                  "bitwise equals k=1")
+        picks = torch.randint(0, n, (PREFIX,), generator=gen, device=dev)
+        coord = ops.sweep_rows_gs(vals, cols, spd.b, x0, picks, beta=0.9)
+        p32 = picks.to(torch.int32)
+        check(all(torch.equal(sweep_csr.sweep_rows_block_gs(
+                  vals, cols, spd.b, x0, p32, block=1, beta=0.9, limit=n,
+                  _shared=shared), coord) for shared in (True, False)),
+              f"sweep_rows_block_gs {tag} at block 1, both paths: bitwise "
+              f"sweep_rows_gs ({PREFIX} picks)")
+
+    sched = {blk: Schedule(num_iters=CSR_BGS_SWEEPS * (n // blk),
+                           record_every=n // blk) for blk in CSR_BGS_BLOCKS}
+    expect = dict(sweep_rows_block_gs=CSR_BGS_SWEEPS,
+                  spmv_csr_sliced=2 * CSR_BGS_SWEEPS,
+                  colsum=2 * CSR_BGS_SWEEPS)
+    runs = [(blk, None) for blk in CSR_BGS_BLOCKS]
+    runs.append((CSR_BGS_BLOCKS[-1], "bfloat16"))
+    solves = {}
+    for blk, sd in runs:
+        kw = dict(format="csr", gs_block=blk, storage_dtype=sd,
+                  generator=torch.Generator(dev).manual_seed(CSR_BGS_SEED),
+                  schedule=sched[blk])
+        tag = (f"CSR block GS (gs_block {blk}"
+               + ("" if sd is None else ", bf16 storage")
+               + f"), {CSR_BGS_SWEEPS} sweeps")
+        res = drive(tag, expect, functools.partial(solve, spd, **kw))
+        solves[tag] = (res, kw)
+        check(res.x.shape == (n, K) and bool(torch.isfinite(res.x).all())
+              and bool((res.resid[-1] < res.resid[0]).all()),
+              f"{tag}: iterate finite, the residual falls at every column "
+              "(column 0: " + ", ".join(f"{v:.4g}" for v in
+                                        res.resid[:, 0].tolist()) + ")")
+        # bf16 storage solves the rounded system, whose solution is not
+        # x_star: its err_sq stops falling near the rounding's distance
+        A = spd.A if sd is None else spd.A.to(torch.bfloat16).float()
+        if sd is None:
+            seq = torch.cat([a_norm_sq(spd.A, spd.x_star)[None, :],
+                             res.err_sq], 0).double()
+            worst = float((seq[1:] / seq[:-1]).max())
+            check(worst <= 1 + MONO_RTOL, f"{tag}: A-norm err_sq "
+                  "non-increasing (largest ratio of consecutive records "
+                  f"{worst:.6f})")
+        want = torch.linalg.vector_norm(spd.b - A @ res.x, dim=0)
+        e = float(((res.resid[-1] - want).abs() / want).max())
+        check(e <= RESID_RTOL, f"{tag}: final residual vs dense "
+              f"torch.matmul, max rel diff {e:.3e} <= {RESID_RTOL:g}")
+
+    # Serving chunks of one sweep each, chained over one stream: bitwise
+    # the one-shot solve; one sweep, one matvec and one colsum a chunk.
+    op = csr[None]
+    blk = CSR_BGS_BLOCKS[-1]
+    rec = n // blk
+    picks = torch.randint(0, rec, (SERVE_CHAIN * rec,), generator=gen,
+                          device=dev, dtype=torch.int32)
+
+    def chained():
+        x = torch.zeros_like(spd.b)
+        for c in range(SERVE_CHAIN):
+            x, _ = sequential_chunk(op, spd.b, x, picks[c * rec:(c + 1) * rec],
+                                    action="gs", block=blk)
+        return x
+    x = drive(f"CSR block GS (gs_block {blk}): {SERVE_CHAIN} serving chunks "
+              "chained", dict(sweep_rows_block_gs=SERVE_CHAIN,
+                              spmv_csr_sliced=SERVE_CHAIN,
+                              colsum=SERVE_CHAIN), chained)
+    once = solve_sequential(op, spd.b, torch.zeros_like(spd.b), spd.x_star,
+                            action="gs", num_iters=SERVE_CHAIN * rec,
+                            picks=picks, block=blk, record_every=rec)
+    check(torch.equal(x, once.x), f"CSR block GS (gs_block {blk}): "
+          f"{SERVE_CHAIN} chained serving chunks bitwise solve_sequential")
+
+    # A main-path chunk (a sweep: n // blk picks) at each block, from
+    # Python and from a CUDA graph, and by path in turns (shared, global,
+    # global, shared).
+    vals, cols = op.padded_rows()
+    chunks = {}
+    for blk in CSR_BGS_BLOCKS:
+        picks = torch.randint(0, n // blk, (n // blk,), generator=gen,
+                              device=dev)
+        run = functools.partial(ops.sweep_rows_block_gs, vals, cols, spd.b,
+                                x0, picks, block=blk)
+        ms, g_ms = cuda_ms(run, 5), graph_ms(run, 5)
+        p32 = picks.to(torch.int32)
+        turns = [cuda_ms(functools.partial(
+            sweep_csr.sweep_rows_block_gs, vals, cols, spd.b, x0, p32,
+            block=blk, beta=1.0, limit=n // blk, _shared=shared), 5)
+            for shared in (True, False, False, True)]
+        chunks[blk] = dict(picks=picks, run=run, ms=ms, graph_ms=g_ms,
+                           turns=turns)
+        print(f"  sweep_rows_block_gs, one main-path chunk (block {blk}, "
+              f"{n // blk} picks, n={n}, k={K}): {ms:.4f} ms from Python, "
+              f"{g_ms:.4f} ms from a graph ({g_ms * 1e3 / (n // blk):.3f} "
+              "us/pick); by path in turns (shared, global, global, shared) "
+              + "/".join(f"{t:.4f}" for t in turns) + f" ms [{smi}]",
+              flush=True)
+    return solves, dict(errs=errs, chunks=chunks, op=op, x0=x0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2097,6 +2255,13 @@ def main() -> int:
             "A = torch.eye(8, device='cuda')\n"
             "b = torch.zeros((8, 1), device='cuda')\n"
             "ops.block_gs_sweep(A, b, b, torch.tensor([1, 2], "
+            "device='cuda'), block=4)\n"
+            "torch.cuda.synchronize()\n"),
+        "sweep_rows_block_gs with panel 2 of 2": head + (
+            "v = torch.ones((8, 2), device='cuda')\n"
+            "c = torch.zeros((8, 2), dtype=torch.int32, device='cuda')\n"
+            "x = torch.zeros((8, 1), device='cuda')\n"
+            "ops.sweep_rows_block_gs(v, c, x, x, torch.tensor([1, 2], "
             "device='cuda'), block=4)\n"
             "torch.cuda.synchronize()\n")}
     children = {what: subprocess.Popen(
@@ -3061,6 +3226,10 @@ def main() -> int:
                              generator=torch.Generator(dev).manual_seed(5),
                              schedule=gs_sched(DENSE_SWEEPS, nb)))
 
+    # Block GS on CSR, at gs_block 8 and 128 (csr_block_gs_phase).
+    csr_bgs, csr_bgs_out = csr_block_gs_phase(torch, ops, ref, sweep_csr, spd,
+                                              drive, smi)
+
     # Column 0 of each path solved alone (k = 1) on the same picks: the
     # same generator seed, and no stream depends on k.  Its iterate, err_sq
     # and resid must be bitwise column 0 of the k = K solve (DESIGN.md §8).
@@ -3087,6 +3256,9 @@ def main() -> int:
             banded, format="dense", gs_block=BLOCK,
             generator=torch.Generator(dev).manual_seed(5),
             schedule=gs_sched(DENSE_SWEEPS, nb)))}
+    for tag, (res, kw) in csr_bgs.items():
+        solos[tag] = (res, alone(spd, **dict(
+            kw, generator=torch.Generator(dev).manual_seed(CSR_BGS_SEED))))
 
     # The CSR matvec seam: each variant launches exactly its kernel, on the
     # CSR GS operator and on the empty-panel design.
@@ -3983,6 +4155,46 @@ def main() -> int:
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                       library_ms=None, us_per_pick=ms * 1e3 / nb,
                       bf16_ms=ms_bf16))
+
+    # sweep_rows_block_gs: one main-path chunk at the last of
+    # CSR_BGS_BLOCKS (a sweep: SPD_N // block picks).  Bytes, by the
+    # sweeps' rule: per pick its rows' stored nonzeros (value and index),
+    # their b rows and its id, plus x once in and once out; flops: 2 * nnz
+    # * k + 3 * k a row.  No library call computes this serial chain.
+    blk = CSR_BGS_BLOCKS[-1]
+    chunk = csr_bgs_out["chunks"][blk]
+    op_b = csr_bgs_out["op"]
+    vals_b, cols_b = op_b.padded_rows()
+    rows_b = (chunk["picks"].long()[:, None] * blk
+              + torch.arange(blk, device=dev)[None, :]).reshape(-1)
+    nnz_r = op_b.row_nnz[rows_b].double()
+    b_ms, by = bound_ms(
+        float(nnz_r.sum()) * (val_b + idx_b) + rows_b.numel() * K * 4
+        + chunk["picks"].numel() * 4 + 2 * SPD_N * K * 4,
+        float((2 * nnz_r * K + 3 * K).sum()))
+    plain_ms = cuda_ms(functools.partial(
+        ref.sweep_rows_block_gs_ref, vals_b, cols_b, spd.b, csr_bgs_out["x0"],
+        chunk["picks"], block=blk), 1)
+    print(f"  sweep_rows_block_gs, one main-path chunk (block {blk}, "
+          f"{chunk['picks'].numel()} picks): {chunk['ms']:.4f} ms from "
+          f"Python ({chunk['ms'] * 1e3 / chunk['picks'].numel():.3f} "
+          f"us/pick); plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); "
+          f"no library call (a serial chain) [{smi}]", flush=True)
+    small = csr_bgs_out["chunks"][CSR_BGS_BLOCKS[0]]
+    lines.append(dict(name="sweep_rows_block_gs", route="cuda",
+                      source="src/repro_torch/csrc/sweep_csr.cu",
+                      replaces="none: a kernel of the port's own (the "
+                      "reference runs block GS on CSR as a lax.scan over "
+                      "densified row panels, src/repro/core/engine.py:580-590, "
+                      "no Pallas kernel)",
+                      launches=launches["sweep_rows_block_gs"],
+                      max_abs_err=csr_bgs_out["errs"][(None, blk)], ms=chunk["ms"],
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=None, graph_ms=chunk["graph_ms"], block=blk,
+                      global_ms=chunk["turns"][1],
+                      **{f"block{CSR_BGS_BLOCKS[0]}_ms": small["ms"],
+                         f"block{CSR_BGS_BLOCKS[0]}_graph_ms":
+                             small["graph_ms"]}))
 
     # The segment-sum pair on both operators; the JSON line takes each
     # kernel on the operator of its main-path run.

@@ -15,10 +15,13 @@ is one launch of its sweep kernel, on the CPU its plain version; a dense
 operator has no coordinate-sweep kernel and steps through its picks in
 plain PyTorch.  On the block-banded format a GS pick is a whole block row
 (``op.nb`` directions); it has no sequential Kaczmarz action (the banded
-Kaczmarz runs in the distributed engine).  Dense block GS (``gs_block`` >
-1, the paper's Alg. 1 at the TPU's block granularity, ``DESIGN.md`` §2)
-picks aligned panels of ``gs_block`` rows (``n // gs_block`` directions)
-and runs each chunk as one ``op.block_gs_sweep`` launch.
+Kaczmarz runs in the distributed engine).  Block GS (``gs_block`` > 1,
+the paper's Alg. 1 at the TPU's block granularity, ``DESIGN.md`` §2) on
+the dense or the CSR format picks aligned panels of ``gs_block`` rows
+(``n // gs_block`` directions) and runs each chunk as one
+``op.block_gs_sweep`` launch (dense: the block-GS kernel; CSR: the block
+mode of the GS sweep over the row windows).  ELL and the block-banded
+format refuse ``gs_block`` > 1, as the reference does.
 
 Picks are drawn with a ``torch.Generator``: a different stream from the
 reference's ``jax.random`` threefry key.  ``picks=`` overrides the drawn
@@ -41,9 +44,6 @@ A distributed ``Schedule`` also carries the slab assignment
 (``partition``), the overlapped sync (``overlap``) and the wire codec
 (``compress``); ``PARTITIONS``, ``COMPRESS_MODES`` and ``supported_syncs``
 are the vocabularies every validation error and CLI ``choices=`` read.
-
-Not ported yet: block GS with ``gs_block > 1`` on the CSR format (ROADMAP
-queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -54,7 +54,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.operators import BlockBandedOp, DenseOp, as_operator
+from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp,
+                                        as_operator)
 from repro_torch.kernels import ops
 from repro_torch.tune import runtime as tune_runtime
 
@@ -367,11 +368,11 @@ def direction_stream(op, action: str, num_iters: int, *,
         raise ValueError(
             f"block={block} is a Gauss-Seidel granularity; the Kaczmarz "
             "action steps row by row (block=1)")
-    if block > 1 and not isinstance(op, DenseOp):
+    if block > 1 and not isinstance(op, (DenseOp, CsrOp)):
         raise NotImplementedError(
-            f"block GS with block={block} runs on the dense format only "
-            f"(got {type(op).__name__}); CSR row panels are not ported yet "
-            "(ROADMAP queue 1 item 3)")
+            f"block GS with block={block} needs aligned row panels (the "
+            f"dense or CSR format; got {type(op).__name__}); the block-banded "
+            "format steps its own block rows (block=, with gs_block=1)")
     if action == "rk" and isinstance(op, BlockBandedOp):
         raise NotImplementedError(
             "sequential RK needs per-row access (dense, ELL or CSR); the "
@@ -397,8 +398,8 @@ def direction_stream(op, action: str, num_iters: int, *,
 
 def sweep(op, b, x, picks, *, action: str, beta: float, block: int, rn):
     """One record chunk's steps: one ``op.gs_sweep`` / ``op.rk_sweep``
-    call (``rn`` the Kaczmarz divisor), or with ``block > 1`` (dense block
-    GS) one ``op.block_gs_sweep`` call."""
+    call (``rn`` the Kaczmarz divisor), or with ``block > 1`` (block GS,
+    dense or CSR) one ``op.block_gs_sweep`` call."""
     if block > 1:
         return op.block_gs_sweep(b, x, picks, block=block, beta=beta)
     if action == "gs":
@@ -426,8 +427,9 @@ def solve_sequential(
 
     The direction stream is ``picks`` when given (``num_iters`` direction
     ids), else drawn from ``generator``.  Each record chunk is one
-    ``op.gs_sweep`` / ``op.rk_sweep`` call, or with ``block > 1`` (dense
-    block GS) one ``op.block_gs_sweep`` call.  ``x0`` is not modified.
+    ``op.gs_sweep`` / ``op.rk_sweep`` call, or with ``block > 1`` (block
+    GS, dense or CSR) one ``op.block_gs_sweep`` call.  ``x0`` is not
+    modified.
     """
     rec = resolve_record_every(num_iters, record_every)
     picks = direction_stream(op, action, num_iters, generator=generator,
@@ -677,8 +679,8 @@ def sequential_chunk(op, b, x, picks, *, action: str, beta: float = 1.0,
     per-column ``||b - A x_next||_2``.
 
     The chunk is the step ``solve_sequential`` takes per record: one
-    ``op.gs_sweep`` / ``op.rk_sweep`` (``op.block_gs_sweep`` for dense
-    block GS, ``block > 1``), then the residual half of ``record_metrics``
+    ``op.gs_sweep`` / ``op.rk_sweep`` (``op.block_gs_sweep`` for block GS,
+    ``block > 1``), then the residual half of ``record_metrics``
     (``op.matvec`` and ``ops.colsum``).  On a CSR operator on the card
     that is three launches: the sweep, the CSR matvec and ``colsum``.  So
     chaining chunks over consecutive slices of one stream gives bitwise the
@@ -804,8 +806,8 @@ def solve(
     shape, else 8; the panel grouping never changes a row's summation
     order), ``storage_dtype`` the coefficient precision (``None`` keeps
     the input dtype; the iterate, ``b`` and all accumulation stay f32),
-    and ``gs_block`` the block-GS granularity on the dense format (1:
-    coordinate GS; the distributed sparse strategies refuse another).
+    and ``gs_block`` the block-GS granularity on the dense and CSR formats
+    (1: coordinate GS; the distributed sparse strategies refuse another).
 
     A sequential ``schedule`` draws its direction stream from
     ``generator`` (``seed`` raises) or takes ``picks``.  With ``tau > 0``

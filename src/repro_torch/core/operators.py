@@ -11,8 +11,8 @@ what the engine's actions need:
                          Kaczmarz step each (sparse formats: one kernel
                          launch); the block-banded format steps whole
                          block rows and has no sequential Kaczmarz sweep;
-* ``block_gs_sweep``   — (dense) a whole run of aligned block-row GS
-                         steps, one kernel launch.
+* ``block_gs_sweep``   — (dense and CSR) a whole run of aligned block-row
+                         GS steps, one kernel launch.
 
 The distributed engine's layout queries: ``halo_width`` (how far a row
 reads from itself: ``bands * block`` on the block-banded format, ``None``
@@ -777,6 +777,48 @@ class CsrOp:
         the caller's row-norm vector (the divisor).  Returns a new x."""
         vals, cols = self.padded_rows()
         return ops.sweep_rows_rk(vals, cols, b, rn, x, picks, beta=beta)
+
+    def block_gs_sweep(self, b, x, blocks, *, block: int,
+                       beta: float = 1.0) -> torch.Tensor:
+        """Sequential randomized block-GS steps over ``padded_rows()``, one
+        per panel id ``bi``: ``x[B] += beta * (b[B] - A[B, :] @ x)`` on the
+        rows ``B = [bi * block, (bi + 1) * block)``, every row's residual
+        taken before the panel is written; one launch of the block-GS sweep
+        kernel on the card, its plain version on the CPU.  Returns a new
+        x."""
+        vals, cols = self.padded_rows()
+        return ops.sweep_rows_block_gs(vals, cols, b, x, blocks, block=block,
+                                       beta=beta)
+
+    def _panel_rows(self, bi, block: int) -> torch.Tensor:
+        bi = int(bi)
+        if bi < 0 or block < 1 or (bi + 1) * block > self._shape[0]:
+            raise IndexError(f"panel {bi} of {block} rows lies outside the "
+                             f"operator's {self._shape[0]} rows")
+        return bi * block + torch.arange(block, device=self.device)
+
+    def row_panel(self, bi, block: int) -> torch.Tensor:
+        """Dense (block, n) rows of aligned panel ``bi`` in the storage
+        dtype (the reference's block-GS read; a test aid here, the sweep
+        reads the row windows)."""
+        rows = self._panel_rows(bi, block)
+        vals, cols = self.padded_rows()
+        out = torch.zeros((block, self._shape[1]), dtype=self.data.dtype,
+                          device=self.device)
+        panel = torch.arange(block, device=self.device)[:, None]
+        # added, not set: padding slots (+0 at column 0) may share a row's
+        # real column 0, and adding +0 keeps its value exact
+        return out.index_put_((panel.expand(-1, vals.shape[1]),
+                               cols[rows].long()), vals[rows],
+                              accumulate=True)
+
+    def residual_panel(self, b, x, bi, block: int) -> torch.Tensor:
+        """``(b - A x)`` on the rows of aligned panel ``bi``, (block, k) f32,
+        in Θ(block · row_cap): each row's window contracted in slot order
+        (``kernels/ref.py::window_dot``)."""
+        rows = self._panel_rows(bi, block)
+        vals, cols = self.padded_rows()
+        return b[rows] - ref.window_dot(vals[rows], cols[rows], x)
 
     def to_dense(self) -> torch.Tensor:
         out = torch.zeros(self._shape, dtype=self.data.dtype,

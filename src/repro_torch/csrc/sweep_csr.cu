@@ -1,5 +1,6 @@
 // Fused sequential sweeps over padded sparse rows: coordinate Gauss-Seidel
-// and Kaczmarz, the latter also on two carries.
+// and Kaczmarz, the latter also on two carries, and block Gauss-Seidel over
+// aligned panels of rows (its note is above bgs_kernel below).
 //
 // Replaces the TPU kernels src/repro/kernels/sweep_csr.py::sweep_rows_gs,
 // ::sweep_rows_rk and ::sweep_rows_rk_delta (Pallas, one grid step per
@@ -257,6 +258,110 @@ __global__ void __launch_bounds__(kGsSharedThreads)
   }
 }
 
+// Block GS (gs_block > 1 on CSR; no TPU kernel: the reference's scan
+// computes b[rows] - A[rows, :] @ x on a densified row panel,
+// src/repro/core/engine.py:580-590).  Pick bi owns the rows bi * block + j,
+// j < block.  Per RHS column, every row's dot reads x before the pick
+// writes any of them:
+//   gamma_j = b[row_j, c] - sum_w vals[row_j, w] * x[cols[row_j, w], c]
+//   x[row_j, c] += beta * gamma_j                     (after every gamma)
+// A row's dot is the GS step's: lane l adds the slots l, l + 32, ... in that
+// order (fmaf from +0), then warp_sum, and the update is rounded the same
+// way, so at block = 1 the sweep is bitwise sweep_rows_gs.
+//
+// The rows of one pick are independent, the picks a chain.  A CTA owns one
+// RHS column: its kBgsWarps warps take groups of kBgsGroup rows of the
+// pick (a group's loads are issued together, so their latencies overlap),
+// stage each row's gamma, then after a barrier its threads add the staged
+// gammas to the pick's rows, and a second barrier closes the pick.  The
+// shared-memory path holds x[0:n, c] and the gammas (n + block floats) in
+// dynamic shared memory; the global path keeps x in global memory and
+// stages the gammas in a (k, block) scratch the launcher allocates, so any
+// block runs.  Both run the same row dot and update, so they are bitwise
+// equal, and a column never reads another column, so column 0 at k = 51
+// is bitwise column 0 at k = 1.
+constexpr int kBgsThreads = 256;
+constexpr int kBgsWarps = kBgsThreads / 32;
+constexpr int kBgsGroup = 4;
+
+// Row r's dot with column xc in the GS step's slot order (gs_step's
+// arithmetic; every lane ends with the same value).
+template <bool kShared, typename V, typename I>
+__device__ __forceinline__ float bgs_row_dot(float* xc, int k, int r, const V* __restrict__ vals,
+                                             const I* __restrict__ cols, int width, int lane) {
+  const size_t base = (size_t)r * width;
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < kGsSlots; ++q) {
+    const int s = lane + 32 * q;
+    if (s < width) acc = fmaf(to_f32(vals[base + s]), x_at<kShared>(xc, (int)cols[base + s], k), acc);
+  }
+  if (width > 32 * kGsSlots)
+    acc = window_tail<32 * kGsSlots, kShared>(xc, k, r, vals, cols, width, lane, acc);
+  return warp_sum(acc);
+}
+
+// The whole sweep of one CTA on its column c (xc: the column's row 0;
+// gam: the column's block staged gammas).
+template <bool kShared, typename V, typename I>
+__device__ __forceinline__ void bgs_cta_sweep(float* xc, float* __restrict__ gam, int k, int c,
+                                              const V* __restrict__ vals,
+                                              const I* __restrict__ cols,
+                                              const float* __restrict__ b,
+                                              const int* __restrict__ picks, int width, int steps,
+                                              int block, float beta) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int bi = picks[0];
+  for (int s = 0; s < steps; ++s) {
+    const int next = s + 1 < steps ? picks[s + 1] : 0;
+    const int row0 = bi * block;
+    for (int j0 = warp * kBgsGroup; j0 < block; j0 += kBgsWarps * kBgsGroup) {
+      float dot[kBgsGroup], br[kBgsGroup];
+#pragma unroll
+      for (int u = 0; u < kBgsGroup; ++u) {
+        const int r = row0 + min(j0 + u, block - 1);  // warp-uniform
+        br[u] = b[(size_t)r * k + c];
+        dot[u] = bgs_row_dot<kShared>(xc, k, r, vals, cols, width, lane);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < kBgsGroup; ++u)
+          if (j0 + u < block) gam[j0 + u] = __fsub_rn(br[u], dot[u]);
+      }
+    }
+    __syncthreads();  // every dot has read x; the gammas are staged
+    for (int j = threadIdx.x; j < block; j += kBgsThreads) {
+      float& xr = x_at<kShared>(xc, row0 + j, k);
+      xr = __fadd_rn(xr, __fmul_rn(beta, gam[j]));
+    }
+    __syncthreads();  // the pick's writes are seen by the next pick's dots
+    bi = next;
+  }
+}
+
+// One CTA (kBgsThreads) a column on both paths.  kShared: x[0:n, c] and
+// the gammas in dynamic shared memory; otherwise x in global memory and
+// the gammas in scratch[c * block, (c + 1) * block).
+template <typename V, typename I, bool kShared>
+__global__ void __launch_bounds__(kBgsThreads)
+    bgs_kernel(const V* __restrict__ vals, const I* __restrict__ cols, const float* __restrict__ b,
+               float* x, float* scratch, const int* __restrict__ picks, int width, int n, int k,
+               int steps, int block, float beta) {
+  const int c = blockIdx.x;
+  if constexpr (kShared) {
+    extern __shared__ float xs[];
+#pragma unroll 4
+    for (int row = threadIdx.x; row < n; row += blockDim.x) xs[row] = x[(size_t)row * k + c];
+    __syncthreads();
+    bgs_cta_sweep<true>(xs, xs + n, k, c, vals, cols, b, picks, width, steps, block, beta);
+#pragma unroll 4
+    for (int row = threadIdx.x; row < n; row += blockDim.x) x[(size_t)row * k + c] = xs[row];
+  } else {
+    bgs_cta_sweep<false>(x + c, scratch + (size_t)c * block, k, c, vals, cols, b, picks, width,
+                         steps, block, beta);
+  }
+}
+
 constexpr int kRkDepth = 32;          // picks whose windows are fetched ahead
 static_assert(32 % kRkDepth == 0, "the ring depth divides the 32 ids a warp loads");
 constexpr int kRkSlots = 1;           // window slots a lane holds per pick
@@ -455,6 +560,28 @@ int launch_gs(const void* vals, const void* cols, const void* b, void* x, const 
   return (int)cudaGetLastError();
 }
 
+template <typename V, typename I>
+int launch_block_gs(const void* vals, const void* cols, const void* b, void* x, void* scratch,
+                    const void* picks, int width, int n, int k, int steps, int limit, int block,
+                    float beta, int shared, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  launch_check(picks, steps, limit, s);
+  if (shared) {
+    const size_t bytes = sizeof(float) * ((size_t)n + block);
+    const cudaError_t err = cudaFuncSetAttribute(
+        bgs_kernel<V, I, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    bgs_kernel<V, I, true><<<k, kBgsThreads, bytes, s>>>(
+        (const V*)vals, (const I*)cols, (const float*)b, (float*)x, nullptr, (const int*)picks,
+        width, n, k, steps, block, beta);
+  } else {
+    bgs_kernel<V, I, false><<<k, kBgsThreads, 0, s>>>(
+        (const V*)vals, (const I*)cols, (const float*)b, (float*)x, (float*)scratch,
+        (const int*)picks, width, n, k, steps, block, beta);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename V, typename I, bool kDelta>
 int launch_rk(const void* vals, const void* cols, const void* b, const void* rn, void* x,
               void* d, const void* picks, int width, int n, int k, int steps, int limit,
@@ -488,6 +615,16 @@ int launch_rk(const void* vals, const void* cols, const void* b, const void* rn,
                            shared, stream);                                                      \
   }
 
+// scratch: (k, block) f32 for the global path's gammas (unused, may be
+// null, on the shared-memory path).
+#define BLOCK_GS_ENTRY(NAME, V, I)                                                               \
+  extern "C" int NAME(const void* vals, const void* cols, const void* b, void* x, void* scratch, \
+                      const void* picks, int width, int n, int k, int steps, int limit,         \
+                      int block, float beta, int shared, void* stream) {                        \
+    return launch_block_gs<V, I>(vals, cols, b, x, scratch, picks, width, n, k, steps, limit,   \
+                                 block, beta, shared, stream);                                   \
+  }
+
 #define RK_ENTRY(NAME, V, I)                                                                     \
   extern "C" int NAME(const void* vals, const void* cols, const void* b, const void* rn, void* x, \
                       const void* picks, int width, int n, int k, int steps, int limit,         \
@@ -512,6 +649,9 @@ extern "C" int sweep_shared_capacity(int device, int* bytes) {
 GS_ENTRY(sweep_rows_gs_f32_i32, float, int32_t)
 GS_ENTRY(sweep_rows_gs_bf16_i16, __nv_bfloat16, int16_t)
 GS_ENTRY(sweep_rows_gs_bf16_i32, __nv_bfloat16, int32_t)
+BLOCK_GS_ENTRY(sweep_rows_block_gs_f32_i32, float, int32_t)
+BLOCK_GS_ENTRY(sweep_rows_block_gs_bf16_i16, __nv_bfloat16, int16_t)
+BLOCK_GS_ENTRY(sweep_rows_block_gs_bf16_i32, __nv_bfloat16, int32_t)
 RK_ENTRY(sweep_rows_rk_f32_i32, float, int32_t)
 RK_ENTRY(sweep_rows_rk_bf16_i16, __nv_bfloat16, int16_t)
 RK_ENTRY(sweep_rows_rk_bf16_i32, __nv_bfloat16, int32_t)

@@ -31,7 +31,7 @@ from repro_torch.kernels import spmv_ell as _spmv_ell
 KERNELS = ("sweep_rows_gs", "sweep_rows_rk", "spmv_csr_sliced",
            "spmv_csr_sliced_prefetch", "spmv_ell", "bbmv", "banded_gs_sweep",
            "sweep_rows_rk_delta", "banded_rk_sweep", "block_gs_sweep",
-           "spmv_csr", "spmv_csr_prefetch", "colsum")
+           "spmv_csr", "spmv_csr_prefetch", "colsum", "sweep_rows_block_gs")
 _COUNTERS = (sweep_csr.LAUNCHES, _spmv_csr.LAUNCHES, _spmv_ell.LAUNCHES,
              _bbmv.LAUNCHES, banded_gs.LAUNCHES, block_gs.LAUNCHES,
              _colsum.LAUNCHES)
@@ -123,6 +123,36 @@ def sweep_rows_gs(vals, cols, b, x, picks, *, beta=1.0, write_base=0):
                                        write_base=write_base, limit=limit)
     return ref.sweep_rows_gs_ref(vals, cols, b, x, picks, beta=beta,
                                  write_base=write_base)
+
+
+def sweep_rows_block_gs(vals, cols, b, x, blocks, *, block: int, beta=1.0):
+    """Fused block-GS sweep over padded rows; returns a new x.
+
+    vals/cols: (n, width) row windows of a square operator (global column
+    ids); b, x: (n, k) f32; blocks: (steps,) panel ids in [0, n // block).
+    Pick ``bi`` updates rows ``B = [bi * block, (bi + 1) * block)``: every
+    row's ``gamma = b[r] - <A_r, x>`` is taken before any of them is
+    written, then ``x[B] += beta * gamma``.  At ``block = 1`` it is
+    bitwise ``sweep_rows_gs``.
+    """
+    name = "sweep_rows_block_gs"
+    cuda = _on_cuda(name, vals, cols, b, x)
+    _check_windows(name, vals, cols)
+    _check_f32(name, b=b, x=x)
+    n = x.shape[0]
+    if x.ndim != 2 or b.shape != x.shape or vals.shape[0] != n:
+        raise ValueError(f"{name}: vals {tuple(vals.shape)} / b "
+                         f"{tuple(b.shape)} / x {tuple(x.shape)} is not "
+                         "(n, width) / (n, k) / (n, k)")
+    if not 1 <= block <= n:
+        raise ValueError(f"{name}: block {block} must lie in [1, {n}]")
+    blocks = _picks(name, blocks, n // block, x)
+    if cuda:
+        return sweep_csr.sweep_rows_block_gs(vals, cols, b, x, blocks,
+                                             block=block, beta=beta,
+                                             limit=n // block)
+    return ref.sweep_rows_block_gs_ref(vals, cols, b, x, blocks, block=block,
+                                       beta=beta)
 
 
 def sweep_rows_rk(vals, cols, b, rn, x, picks, *, beta=1.0):

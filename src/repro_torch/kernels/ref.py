@@ -173,6 +173,21 @@ def sweep_rows_gs_ref(vals, cols, b, x, picks, *, beta: float = 1.0,
     return x
 
 
+def sweep_rows_block_gs_ref(vals, cols, b, x, blocks, *, block: int,
+                            beta: float = 1.0):
+    """``len(blocks)`` sequential block-GS steps over row windows; returns a
+    new x.  Step ``bi`` takes every row's ``gamma = b[r] - <A_r, x>`` of
+    ``B = [bi * block, (bi + 1) * block)`` (``gs_step``'s arithmetic, each
+    row's window in slot order), then ``x[B] += beta * gamma``; at
+    ``block = 1`` it is bitwise ``sweep_rows_gs_ref``."""
+    x = x.clone()
+    for bi in blocks.tolist():
+        rows = slice(bi * block, (bi + 1) * block)
+        gamma = b[rows] - window_dot(vals[rows], cols[rows], x)
+        x[rows] += beta * gamma
+    return x
+
+
 def sweep_rows_rk_ref(vals, cols, b, rn, x, picks, *, beta: float = 1.0):
     """``len(picks)`` sequential Kaczmarz steps; returns a new x."""
     x = x.clone()

@@ -2,8 +2,11 @@
 
 Port of ``repro/kernels/sweep_csr.py::sweep_rows_gs`` / ``::sweep_rows_rk``
 / ``::sweep_rows_rk_delta``: a whole run of ``len(picks)`` sequential row
-updates in one launch, one warp per RHS column.  The kernel design and
-what bounds it are in the source's header note.
+updates in one launch, one warp per RHS column.  ``sweep_rows_block_gs``
+is the port's own block mode of the GS sweep (block GS on CSR, which the
+reference runs as a ``lax.scan`` over densified row panels): a pick
+updates an aligned panel of ``block`` rows, one CTA per RHS column.  The
+kernel designs and what bounds them are in the source's notes.
 
 Each sweep has two paths, chosen here by size (``fits_shared``): a CTA
 holds one column of the iterate (and of the delta carry) in shared memory
@@ -26,15 +29,17 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = {"sweep_rows_gs": 0, "sweep_rows_rk": 0,
-            "sweep_rows_rk_delta": 0}
+            "sweep_rows_rk_delta": 0, "sweep_rows_block_gs": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
 _RK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 _RK_DELTA_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
+_BLOCK_GS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
 _CAPACITY_ARGS = [_I, ctypes.POINTER(_I)]
 _KERNEL_ARGS = {"sweep_rows_gs": _GS_ARGS, "sweep_rows_rk": _RK_ARGS,
-                "sweep_rows_rk_delta": _RK_DELTA_ARGS}
+                "sweep_rows_rk_delta": _RK_DELTA_ARGS,
+                "sweep_rows_block_gs": _BLOCK_GS_ARGS}
 # Every C entry of csrc/sweep_csr.cu these launchers load, with its
 # argument types.
 C_ENTRIES = {f"{kernel}_{suffix}": args
@@ -48,8 +53,9 @@ _capacity: dict[int, int] = {}
 def fits_shared(rows: int, capacity: int, carries: int = 1) -> bool:
     """Whether a sweep takes its shared-memory path: one column of each of
     its ``carries`` (1: x; 2: x and the RK delta d), all ``rows`` rows (GS:
-    ``write_base + r`` may be any of them) at 4 bytes each, within
-    ``capacity`` bytes.  Otherwise they stay in global memory."""
+    ``write_base + r`` may be any of them; block GS: n rows and the pick's
+    ``block`` staged gammas) at 4 bytes each, within ``capacity`` bytes.
+    Otherwise they stay in global memory."""
     return 4 * rows * carries <= capacity
 
 
@@ -141,3 +147,33 @@ def sweep_rows_rk_delta(vals, cols, b, rn, x, d, picks, *, beta: float,
     _build.check_launch(err, "sweep_rows_rk_delta")
     LAUNCHES["sweep_rows_rk_delta"] += 1
     return x_out, d_out
+
+
+def sweep_rows_block_gs(vals, cols, b, x, blocks, *, block: int, beta: float,
+                        limit: int, _shared: bool | None = None):
+    """Block GS sweep on the card.  Returns a new x (``x`` cloned, then
+    updated in place by the kernel).
+
+    The shared-memory path holds a column of x and the pick's ``block``
+    gammas (``fits_shared(n + block, ...)``); the global path stages the
+    gammas in a (k, block) scratch allocated here.  ``_shared`` overrides
+    the size rule, as in ``sweep_rows_gs``."""
+    n, k = x.shape
+    width = vals.shape[1]
+    out = x.clone()
+    if blocks.numel() == 0 or k == 0:
+        return out
+    shared = (fits_shared(n + block, shared_capacity(x.device))
+              if _shared is None else bool(_shared))
+    scratch = None if shared else torch.empty((k, block), dtype=torch.float32,
+                                              device=x.device)
+    fn = _build.c_entry("sweep_csr", "sweep_rows_block_gs", vals.dtype,
+                        cols.dtype, _BLOCK_GS_ARGS)
+    err = fn(vals.data_ptr(), cols.data_ptr(), b.data_ptr(), out.data_ptr(),
+             None if scratch is None else scratch.data_ptr(),
+             blocks.data_ptr(), width, n, k, blocks.numel(), int(limit),
+             int(block), float(beta), int(shared),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(err, "sweep_rows_block_gs")
+    LAUNCHES["sweep_rows_block_gs"] += 1
+    return out

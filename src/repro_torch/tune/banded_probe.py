@@ -31,13 +31,13 @@ import functools
 import hashlib
 import inspect
 import json
-import subprocess
 
 import torch
 
 from repro_torch.core.operators import as_operator
 from repro_torch.core.spd import block_banded_spd
 from repro_torch.kernels import banded_gs
+from repro_torch.tune.table import card_name
 
 N, BLOCK, BANDS, K = 16384, 128, 2, 51
 P4, P4_STEPS = 4, 32
@@ -133,9 +133,7 @@ def main(argv=None) -> int:
             ms[var] = _ms(functools.partial(fn, **kw), args.repeats)
         agree &= len(set(sha.values())) == 1
         result[name] = {"ms": ms, "sha256": sha}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_name()
     print(card)
     print(json.dumps({"label": args.label, "k": K, "cases": result,
                       "variants_agree": agree}))

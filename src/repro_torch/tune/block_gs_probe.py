@@ -26,12 +26,12 @@ import argparse
 import functools
 import hashlib
 import json
-import subprocess
 
 import torch
 
 from repro_torch.core.spd import block_banded_spd
 from repro_torch.kernels import block_gs
+from repro_torch.tune.table import card_name
 
 N, BLOCK, K = 16384, 128, 51
 BETA = 0.9
@@ -93,9 +93,7 @@ def main(argv=None) -> int:
         col0.setdefault(name.split("_")[0], set()).add(_digest(out[:, 0]))
         result[name] = {"ms": _ms(fn, args.repeats), "sha256": _digest(out)}
     agree = all(len(d) == 1 for d in col0.values())
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_name()
     print(card)
     print(json.dumps({"label": args.label, "n": N, "block": BLOCK,
                       "picks": N // BLOCK, "cases": result,

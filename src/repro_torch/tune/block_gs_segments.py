@@ -175,9 +175,8 @@ def main(argv=None) -> int:
                 f"{seg} {kinds['untouched'][seg]:.0f}/"
                 f"{kinds['touched'][seg]:.0f}" for seg in SEGMENTS),
                 flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    from repro_torch.tune.table import card_name
+    card = card_name()
     print(card)
     print(json.dumps({"segments": SEGMENTS, "variants": result}))
     return 0

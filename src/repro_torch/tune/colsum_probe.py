@@ -20,11 +20,11 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import subprocess
 
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.tune.table import card_name
 
 SHAPES = ((16384, 51), (32768, 51), (4096, 51), (16384, 1))
 REPS = 50
@@ -82,9 +82,7 @@ def main(argv=None) -> int:
         one = ops.colsum(t[:, :1].contiguous())
         checks[tag] = bool((err <= COLSUM_RTOL * t.sum(0)).all()
                            and torch.equal(one[0], got[0]))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_name()
     print(card)
     print(json.dumps({"reps": REPS, "turns": turns, "checks": checks}))
     return 0 if all(checks.values()) else 1

@@ -97,6 +97,7 @@ from repro_torch.core.kaczmarz import random_sparse_lsq
 from repro_torch.core.operators import CsrOp, EllOp, as_operator
 from repro_torch.core.spd import random_sparse_spd
 from repro_torch.kernels import ops
+from repro_torch.tune.table import card_name
 
 ROOT = Path(__file__).resolve().parents[3]
 K, REPS = 51, 50
@@ -670,9 +671,7 @@ def main(argv=None) -> int:
         failed += [f"padding sweep {w}: with counts == without"
                    for w, r in extra["padding_sweep"].items()
                    if not r["bitwise_equal"]]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_name()
     print(card)
     print(json.dumps({"label": args.label, "k": K, "reps": REPS,
                       "turns": turns, "variants": variants, **extra,

@@ -27,11 +27,11 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import subprocess
 
 import torch
 
 from repro_torch.kernels import ref, sweep_csr
+from repro_torch.tune.table import card_name
 
 PREFIX = 2048
 K = 51
@@ -132,9 +132,7 @@ def main(argv=None) -> int:
     rel_err = {name: max(_rel(a, w) for a, w in zip(
         fn(picks[:PREFIX], True), plain(picks[:PREFIX])))
         for name, (fn, plain, picks) in sweeps.items()}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_name()
     print(card)
     print(json.dumps({"k": K, "gs": [GS_N, GS_WIDTH],
                       "rk": [RK_M, RK_N, RK_WIDTH], "turns": turns,

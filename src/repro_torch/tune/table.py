@@ -36,6 +36,7 @@ engine.
 from __future__ import annotations
 
 import json
+import subprocess
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import NamedTuple
@@ -89,6 +90,14 @@ def backend_key() -> str:
     "cpu"."""
     import torch
     return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def card_name() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them, the
+    stamp the probes print beside their times."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
 
 
 def default_path(backend: str | None = None) -> Path:

@@ -226,9 +226,12 @@ def test_block_gs_sweep_checks_its_arguments():
 def test_gs_block_outside_the_dense_gs_path_raises(tmp_path):
     p = spd.random_sparse_spd(32, row_nnz=4, n_rhs=1, seed=1, device="cpu")
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        solve(p, format="csr", gs_block=8, generator=g,
+    with pytest.raises(NotImplementedError, match="aligned row panels"):
+        solve(p, format="ell", gs_block=8, generator=g,
               schedule=Schedule(num_iters=8))
+    res = solve(p, format="csr", gs_block=8, generator=g,
+                schedule=Schedule(num_iters=8))
+    assert res.x.shape == (32, 1) and bool(torch.isfinite(res.x).all())
     with pytest.raises(ValueError, match="Gauss-Seidel granularity"):
         solve(p, format="dense", gs_block=8, action="rk", generator=g,
               schedule=Schedule(num_iters=8))
