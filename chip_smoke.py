@@ -302,10 +302,17 @@ FCG_SIDE, FCG_BLOCK, FCG_SWEEPS, FCG_ITERS = 128, 128, 2, 12
 # record a sweep) at each B of CSR_BGS_BLOCKS with f32 storage, and at the
 # last B with bf16; SERVE_CHAIN serving chunks of a sweep each.  The
 # kernel is held to its plain version on short streams at the blocks of
-# CSR_BGS_CHECK (block: picks): 30 leaves a partial group of a warp's rows,
-# 1000 (past the dense kernel's 256) leaves 384 rows in no panel.
+# CSR_BGS_CHECK (block: picks): 30 leaves warps and lanes without a row,
+# 1000 (past the dense kernel's 256) leaves 384 rows in no panel and goes
+# through the ring in tiles.  Beyond them: bf16/i16 at block
+# 30 on odd panel ids only (bulk copies that start off 16-byte alignment),
+# a stream that repeats each panel (a pick reads the rows the last one
+# wrote), rows wider than 64 slots (random_sparse_spd(SPD_N,
+# row_nnz=CSR_BGS_WIDE_NNZ)), rows too wide for the ring (CSR_BGS_NORING:
+# n, width; the first design), and a main-path chunk on the global path.
 CSR_BGS_BLOCKS, CSR_BGS_SWEEPS, CSR_BGS_SEED = (8, 128), 10, SEED + 51
 CSR_BGS_CHECK = {8: 256, 30: 64, 128: 32, 1000: 4}
+CSR_BGS_WIDE_NNZ, CSR_BGS_NORING = 40, (2048, 15000)
 # Lanczos (64 iterations) against eigvalsh at SIM_N; rk_rho of the main
 # LSQ design in f32 against the same function in f64 by row blocks.
 LANCZOS_RTOL, RK_RHO_RTOL = 1e-3, 1e-4
@@ -2044,7 +2051,8 @@ def csr_block_gs_phase(torch, ops, ref, sweep_csr, spd, drive, smi):
     from Python and from a CUDA graph at each block, the paths in turns.
     Returns the solves with their keywords (for the solo column checks)
     and what the kernel's JSON entry needs."""
-    from repro_torch import Schedule, a_norm_sq, as_operator, solve
+    from repro_torch import (Schedule, a_norm_sq, as_operator,
+                             random_sparse_spd, solve)
     from repro_torch.core.engine import sequential_chunk, solve_sequential
 
     dev = spd.A.device
@@ -2053,6 +2061,36 @@ def csr_block_gs_phase(torch, ops, ref, sweep_csr, spd, drive, smi):
     x0 = torch.randn((n, K), generator=gen, device=dev)
     csr = {sd: as_operator(spd.A, "csr", storage_dtype=sd)
            for sd in (None, "bfloat16")}
+    cap = sweep_csr.shared_capacity(dev)
+
+    def held(tag, vals, cols, b, x, picks, blk):
+        """The kernel against its plain version, its two paths bitwise,
+        column 0 at k = K bitwise k = 1; returns its max abs error."""
+        m = x.shape[0]
+        got = ops.sweep_rows_block_gs(vals, cols, b, x, picks, block=blk,
+                                      beta=0.9)
+        want = ref.sweep_rows_block_gs_ref(vals, cols, b, x, picks,
+                                           block=blk, beta=0.9)
+        torch.cuda.synchronize()
+        e = rel(got, want)
+        check(e <= SWEEP_RTOL, f"sweep_rows_block_gs {tag} n={m} k={K} "
+              f"block {blk}, {picks.numel()} picks: rel err {e:.3e} <= "
+              f"{SWEEP_RTOL:g}")
+        p32 = picks.to(torch.int32)
+        paths = [sweep_csr.sweep_rows_block_gs(
+            vals, cols, b, x, p32, block=blk, beta=0.9, limit=m // blk,
+            _shared=shared) for shared in (True, False)]
+        check(all(torch.equal(p, got) for p in paths),
+              f"sweep_rows_block_gs {tag} block {blk}: the shared-memory "
+              "and the global path bitwise equal")
+        one = ops.sweep_rows_block_gs(
+            vals, cols, b[:, :1].contiguous(), x[:, :1].contiguous(), picks,
+            block=blk, beta=0.9)
+        check(torch.equal(one[:, 0], got[:, 0]),
+              f"sweep_rows_block_gs {tag} block {blk}: column 0 at k={K} "
+              "bitwise equals k=1")
+        return float((got - want).abs().max())
+
     errs = {}
     for sd, op in csr.items():
         tag = "f32/i32" if sd is None else "bf16/i16"
@@ -2060,29 +2098,13 @@ def csr_block_gs_phase(torch, ops, ref, sweep_csr, spd, drive, smi):
         for blk, steps in CSR_BGS_CHECK.items():
             picks = torch.randint(0, n // blk, (steps,), generator=gen,
                                   device=dev)
-            got = ops.sweep_rows_block_gs(vals, cols, spd.b, x0, picks,
-                                          block=blk, beta=0.9)
-            want = ref.sweep_rows_block_gs_ref(vals, cols, spd.b, x0, picks,
-                                               block=blk, beta=0.9)
-            torch.cuda.synchronize()
-            e = rel(got, want)
-            check(e <= SWEEP_RTOL, f"sweep_rows_block_gs {tag} n={n} k={K} "
-                  f"block {blk}, {steps} picks: rel err {e:.3e} <= "
-                  f"{SWEEP_RTOL:g}")
-            errs[(sd, blk)] = float((got - want).abs().max())
-            p32 = picks.to(torch.int32)
-            paths = [sweep_csr.sweep_rows_block_gs(
-                vals, cols, spd.b, x0, p32, block=blk, beta=0.9,
-                limit=n // blk, _shared=shared) for shared in (True, False)]
-            check(all(torch.equal(p, got) for p in paths),
-                  f"sweep_rows_block_gs {tag} block {blk}: the shared-memory "
-                  "and the global path bitwise equal")
-            one = ops.sweep_rows_block_gs(
-                vals, cols, spd.b[:, :1].contiguous(),
-                x0[:, :1].contiguous(), picks, block=blk, beta=0.9)
-            check(torch.equal(one[:, 0], got[:, 0]),
-                  f"sweep_rows_block_gs {tag} block {blk}: column 0 at k={K} "
-                  "bitwise equals k=1")
+            errs[(sd, blk)] = held(tag, vals, cols, spd.b, x0, picks, blk)
+        plan = sweep_csr.block_plan(n, vals.shape[1], 1000,
+                                    vals.element_size(), cols.element_size(),
+                                    cap)
+        check(plan.shared and 0 < plan.tile_rows < 1000,
+              f"sweep_rows_block_gs {tag} block 1000: a pick goes through "
+              f"the ring in tiles beside x ({plan})")
         picks = torch.randint(0, n, (PREFIX,), generator=gen, device=dev)
         coord = ops.sweep_rows_gs(vals, cols, spd.b, x0, picks, beta=0.9)
         p32 = picks.to(torch.int32)
@@ -2091,6 +2113,50 @@ def csr_block_gs_phase(torch, ops, ref, sweep_csr, spd, drive, smi):
                   _shared=shared), coord) for shared in (True, False)),
               f"sweep_rows_block_gs {tag} at block 1, both paths: bitwise "
               f"sweep_rows_gs ({PREFIX} picks)")
+
+    # Beyond the main shapes; the plans of the main path.
+    width = csr[None].padded_rows()[0].shape[1]
+    for blk, want in ((8, (8, 32, 8)), (128, (8, 2, 128))):
+        plan = sweep_csr.block_plan(n, width, blk, 4, 4, cap)
+        check(plan.shared and (plan.warps, plan.lanes, plan.tile_rows) == want,
+              f"sweep_rows_block_gs block {blk} plan on the card: x in "
+              "shared memory, (warps, lanes, tile rows) == "
+              f"{want} ({plan})")
+    vals, cols = csr["bfloat16"].padded_rows()
+    odd = 2 * torch.randint(0, n // 30 // 2, (64,), generator=gen,
+                            device=dev) + 1
+    held("bf16/i16, odd panel ids (unaligned bulk copies)", vals, cols,
+         spd.b, x0, odd, 30)
+    vals, cols = csr[None].padded_rows()
+    for blk, steps in ((8, 128), (128, 16)):
+        twice = torch.randint(0, n // blk, (steps,), generator=gen,
+                              device=dev).repeat_interleave(2)
+        held("f32/i32, each panel twice in a row", vals, cols, spd.b, x0,
+             twice, blk)
+    wide = random_sparse_spd(n, row_nnz=CSR_BGS_WIDE_NNZ, n_rhs=K,
+                             seed=CSR_BGS_SEED, device=dev)
+    wvals, wcols = as_operator(wide.A, "csr").padded_rows()
+    del wide
+    check(wvals.shape[1] > 64, f"random_sparse_spd({n}, row_nnz="
+          f"{CSR_BGS_WIDE_NNZ}) has rows wider than 64 slots "
+          f"({wvals.shape[1]})")
+    for blk, steps in ((8, 128), (128, 16)):
+        picks = torch.randint(0, n // blk, (steps,), generator=gen,
+                              device=dev)
+        held(f"f32/i32, rows of {wvals.shape[1]} slots", wvals, wcols, spd.b,
+             x0, picks, blk)
+    del wvals, wcols
+    m, width = CSR_BGS_NORING
+    nvals = torch.randn((m, width), generator=gen, device=dev) / width
+    ncols = torch.randint(0, m, (m, width), generator=gen, device=dev,
+                          dtype=torch.int32)
+    plan = sweep_csr.block_plan(m, width, 128, 4, 4, cap)
+    check(plan.tile_rows == 0 and plan.shared, f"rows of {width} slots "
+          f"take the first design, x in shared memory ({plan})")
+    picks = torch.randint(0, m // 128, (4,), generator=gen, device=dev)
+    held(f"f32/i32, rows of {width} slots (the first design)", nvals, ncols,
+         spd.b[:m].contiguous(), x0[:m].contiguous(), picks, 128)
+    del nvals, ncols
 
     sched = {blk: Schedule(num_iters=CSR_BGS_SWEEPS * (n // blk),
                            record_every=n // blk) for blk in CSR_BGS_BLOCKS}
@@ -2171,6 +2237,16 @@ def csr_block_gs_phase(torch, ops, ref, sweep_csr, spd, drive, smi):
             for shared in (True, False, False, True)]
         chunks[blk] = dict(picks=picks, run=run, ms=ms, graph_ms=g_ms,
                            turns=turns)
+        full = [sweep_csr.sweep_rows_block_gs(
+            vals, cols, spd.b, x0, p32, block=blk, beta=1.0, limit=n // blk,
+            _shared=shared) for shared in (False, True)]
+        want = ref.sweep_rows_block_gs_ref(vals, cols, spd.b, x0, picks,
+                                           block=blk)
+        e = rel(full[0], want)
+        check(e <= SWEEP_RTOL and torch.equal(*full),
+              f"sweep_rows_block_gs block {blk}, a main-path chunk ({n // blk}"
+              f" picks) on the global path: rel err {e:.3e} <= "
+              f"{SWEEP_RTOL:g} and bitwise the shared-memory path")
         print(f"  sweep_rows_block_gs, one main-path chunk (block {blk}, "
               f"{n // blk} picks, n={n}, k={K}): {ms:.4f} ms from Python, "
               f"{g_ms:.4f} ms from a graph ({g_ms * 1e3 / (n // blk):.3f} "

@@ -1,6 +1,6 @@
 // Fused sequential sweeps over padded sparse rows: coordinate Gauss-Seidel
 // and Kaczmarz, the latter also on two carries, and block Gauss-Seidel over
-// aligned panels of rows (its note is above bgs_kernel below).
+// aligned panels of rows (its note is above the block GS kernels below).
 //
 // Replaces the TPU kernels src/repro/kernels/sweep_csr.py::sweep_rows_gs,
 // ::sweep_rows_rk and ::sweep_rows_rk_delta (Pallas, one grid step per
@@ -265,21 +265,69 @@ __global__ void __launch_bounds__(kGsSharedThreads)
 // writes any of them:
 //   gamma_j = b[row_j, c] - sum_w vals[row_j, w] * x[cols[row_j, w], c]
 //   x[row_j, c] += beta * gamma_j                     (after every gamma)
-// A row's dot is the GS step's: lane l adds the slots l, l + 32, ... in that
-// order (fmaf from +0), then warp_sum, and the update is rounded the same
-// way, so at block = 1 the sweep is bitwise sweep_rows_gs.
+// A row's dot is the GS step's: the partial sum of position l (l < 32)
+// adds the slots l, l + 32, ... in that order (fmaf from +0), and the 32
+// partials are added by warp_sum's butterfly (position l and l ^ o at o =
+// 16, 8, 4, 2, 1).  The update is rounded the same way, so at block = 1 the
+// sweep is bitwise sweep_rows_gs, and both designs below are bitwise equal.
 //
-// The rows of one pick are independent, the picks a chain.  A CTA owns one
-// RHS column: its kBgsWarps warps take groups of kBgsGroup rows of the
-// pick (a group's loads are issued together, so their latencies overlap),
-// stage each row's gamma, then after a barrier its threads add the staged
-// gammas to the pick's rows, and a second barrier closes the pick.  The
-// shared-memory path holds x[0:n, c] and the gammas (n + block floats) in
-// dynamic shared memory; the global path keeps x in global memory and
-// stages the gammas in a (k, block) scratch the launcher allocates, so any
-// block runs.  Both run the same row dot and update, so they are bitwise
-// equal, and a column never reads another column, so column 0 at k = 51
-// is bitwise column 0 at k = 1.
+// What bounds it.  The picks are a chain; a pick's rows are independent.
+// A CTA owns one RHS column (grid k), so a pick costs the latency of its
+// slowest row's dot plus the CTA's synchronization, and every column's CTA
+// reads the same windows.
+//
+// The ring design (bgs_ring_kernel), whenever the ring's stages fit:
+//  (a) A producer warp streams each pick's row windows (in the padded
+//      rows, pick bi's rows are one contiguous run of block * width values
+//      and as many ids) into a ring of kRingStages stages in dynamic
+//      shared memory with cp.async.bulk, each stage completing on its own
+//      mbarrier, up to kRingStages tiles ahead of the chain (2 to 16
+//      stages timed alike at blocks 8 and 128; at block 1000 two stages
+//      leave room for larger tiles, which won: PERF.md).  A bulk copy
+//      needs 16-byte-aligned addresses and sizes: the launcher hands
+//      16-byte-aligned bases, the copy starts at the aligned element below
+//      the run, and the ragged end (under 16 bytes) is loaded by producer
+//      lanes, which arrive on the stage's barrier after their stores.  No
+//      byte past the run's last element is read.  The tile's b values of
+//      the CTA's column (strided in b) come into the stage by 4-byte
+//      cp.async, tracked by the same barrier.  A pick larger than a stage
+//      goes through the ring in tiles of `tile_rows` rows.
+//  (b) `warps` consumer warps take a tile's rows, `rows` = 32 / `lanes` a
+//      warp: a group of `lanes` lanes owns a row, lane i of it holding the
+//      partials of the positions l = i (mod lanes), so the butterfly's
+//      levels o >= lanes add in registers (in the same pairs) and only
+//      log2(lanes) levels shuffle.  The dots read values and ids from the
+//      stage; only the x gathers, the sums and the update are on the
+//      chain (a first version loaded b two picks ahead into registers:
+//      rotating them made every pick wait for an L2 load; PERF.md).  The
+//      old x of a row is read with the gathers.  The lane that owns a row
+//      writes it, so no gamma is staged unless a pick spans several tiles
+//      (then the earlier tiles' gammas go to a (k, block) scratch, each
+//      read back by the thread that wrote it).
+//  (c) Two points of order a pick: every dot has read x before any row is
+//      written, and the writes are seen by the next pick's gathers.  One
+//      consumer warp closes each with __syncwarp(); several, with a named
+//      barrier over the consumer warps only (bar.sync 1).  The launcher
+//      takes min(8, block) warps: at block 8 eight warps, a warp a row,
+//      beat one warp holding all eight rows (PERF.md).  A consumer warp
+//      releases a stage (its lane 0 arrives on the stage's empty barrier)
+//      after a __syncwarp() that follows its reads of it; the producer
+//      waits for that, then fences the async proxy before the next copy
+//      lands there.
+//  (d) x: the shared-memory path holds x[0:n, c] beside the ring; the
+//      global path keeps it in global memory and still streams the windows
+//      (both chosen by size: kernels/sweep_csr.py::block_plan).  There the
+//      gathers are L2 round trips, and for picks of more than 8 rows (30
+//      and 128) the ring was no faster than the first design, which the
+//      launcher then runs.
+//
+// The first design (bgs_kernel), kept for rows too wide for a ring of
+// one-row stages and for the global path's picks of more than 8 rows: eight
+// warps take a pick's rows four at a time, reading the windows from
+// global memory, stage each gamma, and after a CTA barrier its threads
+// add them to the rows.  Its shared-memory path holds x[0:n, c] and the
+// gammas (n + block floats); its global path stages the gammas in the
+// scratch.
 constexpr int kBgsThreads = 256;
 constexpr int kBgsWarps = kBgsThreads / 32;
 constexpr int kBgsGroup = 4;
@@ -359,6 +407,359 @@ __global__ void __launch_bounds__(kBgsThreads)
   } else {
     bgs_cta_sweep<false>(x + c, scratch + (size_t)c * block, k, c, vals, cols, b, picks, width,
                          steps, block, beta);
+  }
+}
+
+// ---- The ring design ----
+constexpr int kRingWarps = 8;     // consumer warps at most
+constexpr int kRingStages = 2;    // stages of the ring (kernels/sweep_csr.py::RING_STAGES)
+constexpr int kRingThreads = 32 * (kRingWarps + 1);
+constexpr long long kHangCycles = 1ll << 32;  // a wait this long (about 2 s) traps
+
+// Bytes of one stage region holding `rows` rows of `elem`-byte elements at
+// an offset under 16 bytes (kernels/sweep_csr.py::ring_region).
+__host__ __device__ __forceinline__ size_t ring_region(int rows, int width, size_t elem) {
+  return ((size_t)rows * width * elem + 15 + 15) & ~(size_t)15;
+}
+
+// Bytes of a stage: the tile's values, its ids, and its rows' b values of
+// the CTA's column (kernels/sweep_csr.py::ring_bytes).
+template <typename V, typename I>
+__host__ __device__ __forceinline__ size_t ring_stage_bytes(int rows, int width) {
+  return ring_region(rows, width, sizeof(V)) + ring_region(rows, width, sizeof(I)) +
+         (((size_t)rows * sizeof(float) + 15) & ~(size_t)15);
+}
+
+// Dynamic shared memory of the ring kernel: the stages' barriers (full and
+// empty, 8 bytes each), x on the shared-memory path, the stages
+// (kernels/sweep_csr.py::ring_bytes).
+template <typename V, typename I>
+size_t ring_smem_bytes(int n, int width, int tile_rows, bool shared) {
+  const size_t xb = shared ? ((size_t)n * sizeof(float) + 15) & ~(size_t)15 : 0;
+  return 16 * (size_t)kRingStages + xb + kRingStages * ring_stage_bytes<V, I>(tile_rows, width);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits out of line: a stage that is late, or a barrier that never
+// completes, which traps (a launch error) instead of hanging the card.
+// Each try suspends the thread until the phase completes or a millisecond
+// passes, so a waiting warp does not spin.
+__device__ __noinline__ void mbar_wait_slow(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity), "r"(1000000u)
+        : "memory");
+    if (!done && clock64() - t0 > kHangCycles) __trap();
+  }
+}
+
+// Until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (!mbar_try(bar, parity)) mbar_wait_slow(bar, parity);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// A 4-byte asynchronous copy (cp.async), and an arrival on the barrier
+// that the executing thread's earlier such copies trigger when they land.
+__device__ __forceinline__ void async_copy4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void async_copies_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The two points of order of a pick, over the consumer warps only.
+__device__ __forceinline__ void consumers_sync(int warps) {
+  if (warps == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync 1, %0;" ::"r"(32 * warps) : "memory");
+}
+
+// The producer warp: every tile of every pick into the ring, in order.
+// Element e of a run [e0, e1) lands at element e - a of its stage region,
+// a = e0 rounded down to 16 bytes: lane 0 bulk-copies [a, m), m = e1
+// rounded down, and lanes 1-15 (values) and 16-31 (ids) load the ragged
+// end [m, e1), one element each.  The tile's b values of column c (a
+// column of b is strided) go by 4-byte cp.async, lane j > 0 taking rows j
+// - 1, j + 30, ..., so that lane 0's proxy fence has no copy of its own
+// in flight; each lane's async arrival waits for its copies.  Every lane
+// also arrives on the stage's full barrier (count 32), lane 0 with the
+// bulk copies' bytes.
+template <typename V, typename I>
+__device__ __forceinline__ void ring_produce(const V* __restrict__ vals, const I* __restrict__ cols,
+                                             const float* __restrict__ b, int k, int c,
+                                             const int* __restrict__ picks, int steps, int width,
+                                             int block, int tile_rows, unsigned char* ring,
+                                             size_t vregion, size_t bregion, size_t sbytes,
+                                             uint64_t* full, uint64_t* empty, int lane) {
+  constexpr int kPerV = 16 / sizeof(V), kPerI = 16 / sizeof(I);
+  int st = 0;
+  uint32_t phase = 0;
+  int ids = lane < steps ? picks[lane] : 0;
+  for (int s0 = 0; s0 < steps; s0 += 32) {
+    const int next = s0 + 32 + lane < steps ? picks[s0 + 32 + lane] : 0;
+    const int batch = min(32, steps - s0);
+    for (int u = 0; u < batch; ++u) {
+      const size_t row0 = (size_t)__shfl_sync(kFull, ids, u) * block;
+      for (int t0 = 0; t0 < block; t0 += tile_rows) {
+        const int rows = min(tile_rows, block - t0);
+        const size_t e0 = (row0 + t0) * width;
+        const size_t e1 = e0 + (size_t)rows * width;
+        const size_t av = e0 / kPerV * kPerV, mv = e1 / kPerV * kPerV;
+        const size_t ac = e0 / kPerI * kPerI, mc = e1 / kPerI * kPerI;
+        V* sv = reinterpret_cast<V*>(ring + st * sbytes);
+        I* sc = reinterpret_cast<I*>(ring + st * sbytes + vregion);
+        float* sb = reinterpret_cast<float*>(ring + st * sbytes + bregion);
+        const uint32_t fb = smem_u32(&full[st]);
+        mbar_wait(smem_u32(&empty[st]), phase ^ 1);
+        if (lane == 0) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          const uint32_t bv = (uint32_t)((mv - av) * sizeof(V));
+          const uint32_t bc = (uint32_t)((mc - ac) * sizeof(I));
+          mbar_arrive_tx(fb, bv + bc);
+          if (bv) bulk_load(smem_u32(sv), vals + av, bv, fb);
+          if (bc) bulk_load(smem_u32(sc), cols + ac, bc, fb);
+        } else {
+          for (int j = lane - 1; j < rows; j += 31)
+            async_copy4(smem_u32(&sb[j]), &b[(row0 + t0 + j) * k + c]);
+          async_copies_arrive(fb);
+          if (lane < 16) {
+            const size_t e = mv + lane - 1;
+            if (e < e1) sv[e - av] = vals[e];
+          } else {
+            const size_t e = mc + lane - 16;
+            if (e < e1) sc[e - ac] = (I)(int)cols[e];
+          }
+          mbar_arrive(fb);
+        }
+        if (++st == kRingStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    ids = next;
+  }
+}
+
+// The dot of a row whose window starts at vs / cs in a stage, by the
+// `kLanes` lanes of its group (lane i of the group: partials of the
+// positions l = i + kLanes * m), in the GS step's order and pairs (the
+// note above); every lane of the group ends with the same value.  With x
+// in shared memory each round of 32 slots loads all its values and ids
+// first (slots past the row read its last slot, and add nothing), then
+// all its gathers, then adds: written slot by slot, the compiler chained
+// each slot's loads behind the previous slot's add.  With x in global
+// memory the slot-by-slot form was faster (PERF.md).  A lane of an
+// inactive group loads nothing (its partials stay +0) but shuffles.
+template <int kLanes, bool kShared, typename V, typename I>
+__device__ __forceinline__ float ring_row_dot(float* xc, int k, const V* vs, const I* cs,
+                                              int width, bool active, int i) {
+  constexpr int kParts = 32 / kLanes;
+  float p[kParts];
+#pragma unroll
+  for (int m = 0; m < kParts; ++m) p[m] = 0.f;
+  if (active && !kShared) {
+#pragma unroll 1
+    for (int q0 = i; q0 < width; q0 += 32) {
+#pragma unroll
+      for (int m = 0; m < kParts; ++m) {
+        const int s = q0 + kLanes * m;
+        if (s < width) p[m] = fmaf(to_f32(vs[s]), x_at<false>(xc, (int)cs[s], k), p[m]);
+      }
+    }
+  } else if (active) {
+#pragma unroll 1
+    for (int q0 = i; q0 < width; q0 += 32) {
+      float v[kParts], g[kParts];
+      int col[kParts];
+#pragma unroll
+      for (int m = 0; m < kParts; ++m) {
+        const int s = min(q0 + kLanes * m, width - 1);
+        v[m] = to_f32(vs[s]);
+        col[m] = (int)cs[s];
+      }
+#pragma unroll
+      for (int m = 0; m < kParts; ++m) g[m] = x_at<kShared>(xc, col[m], k);
+#pragma unroll
+      for (int m = 0; m < kParts; ++m)
+        if (q0 + kLanes * m < width) p[m] = fmaf(v[m], g[m], p[m]);
+    }
+  }
+#pragma unroll
+  for (int h = kParts / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int m = 0; m < kParts / 2; ++m)
+      if (m < h) p[m] += p[m + h];
+  }
+  float v = p[0];
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// One consumer warp's part of the sweep on column xc (gam: the column's
+// scratch, for picks of several tiles).  Its lanes own rows warp * rows +
+// lane / kLanes of each tile; lane i == 0 of a group reads the row's b
+// from the stage and its old x with the gathers, and writes the row.
+// Indices into a pick are 32-bit (a row of x is an int); only the
+// window's offset in its 16-byte granule needs the run's start, mod 16.
+template <int kLanes, bool kShared, typename V, typename I>
+__device__ __forceinline__ void ring_consume(float* xc, float* gam, int k,
+                                             const int* __restrict__ picks, int steps, int width,
+                                             int block, int tile_rows, int warps,
+                                             float beta, const unsigned char* ring,
+                                             size_t vregion, size_t bregion, size_t sbytes,
+                                             uint64_t* full, uint64_t* empty, int warp,
+                                             int lane) {
+  constexpr int kRows = 32 / kLanes;
+  constexpr unsigned kPerV = 16 / sizeof(V), kPerI = 16 / sizeof(I);
+  const int i = lane % kLanes, jt = warp * kRows + lane / kLanes;
+  const int last_t0 = (block - 1) / tile_rows * tile_rows;  // the last tile's first row
+  const bool writes_last = i == 0 && jt < block - last_t0;
+  const unsigned char* stage = ring;
+  int st = 0;
+  uint32_t phase = 0;
+  int ids = lane < steps ? picks[lane] : 0;
+  for (int s0 = 0; s0 < steps; s0 += 32) {
+    const int next = s0 + 32 + lane < steps ? picks[s0 + 32 + lane] : 0;
+    const int batch = min(32, steps - s0);
+    for (int u = 0; u < batch; ++u) {
+      const int row0 = __shfl_sync(kFull, ids, u) * block;
+      float gamma = 0.f;
+      const float xold = writes_last ? x_at<kShared>(xc, row0 + last_t0 + jt, k) : 0.f;
+      for (int t0 = 0; t0 < block; t0 += tile_rows) {
+        const bool active = jt < min(tile_rows, block - t0);
+        const unsigned e0 = (unsigned)(row0 + t0) * (unsigned)width;  // mod 2^32
+        const V* vs = reinterpret_cast<const V*>(stage) + (e0 & (kPerV - 1));
+        const I* cs = reinterpret_cast<const I*>(stage + vregion) + (e0 & (kPerI - 1));
+        const float* sb = reinterpret_cast<const float*>(stage + bregion);
+        mbar_wait(smem_u32(&full[st]), phase);
+        const float br = active && i == 0 ? sb[jt] : 0.f;
+        const float dot = ring_row_dot<kLanes, kShared>(xc, k, vs + jt * width, cs + jt * width,
+                                                        width, active, i);
+        __syncwarp();  // the warp's reads of the stage are done
+        if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+        if (active && i == 0) {
+          const float g = __fsub_rn(br, dot);
+          if (t0 == last_t0)
+            gamma = g;
+          else
+            gam[t0 + jt] = g;
+        }
+        stage += sbytes;
+        if (++st == kRingStages) {
+          st = 0;
+          stage = ring;
+          phase ^= 1;
+        }
+      }
+      consumers_sync(warps);  // every dot of the pick has read x
+      for (int t0 = 0; t0 < last_t0; t0 += tile_rows) {
+        if (i == 0 && jt < tile_rows) {
+          float& xr = x_at<kShared>(xc, row0 + t0 + jt, k);
+          xr = __fadd_rn(xr, __fmul_rn(beta, gam[t0 + jt]));
+        }
+      }
+      if (writes_last)
+        x_at<kShared>(xc, row0 + last_t0 + jt, k) = __fadd_rn(xold, __fmul_rn(beta, gamma));
+      consumers_sync(warps);  // the pick's writes are seen by the next pick's dots
+    }
+    ids = next;
+  }
+}
+
+// One CTA a column: `warps` consumer warps and the producer warp after
+// them.  Dynamic shared memory: the stages' barriers, x[0:n, c] (kShared),
+// the ring (ring_smem_bytes).
+template <typename V, typename I, int kLanes, bool kShared>
+__global__ void __launch_bounds__(kRingThreads)
+    bgs_ring_kernel(const V* __restrict__ vals, const I* __restrict__ cols,
+                    const float* __restrict__ b, float* x, float* scratch,
+                    const int* __restrict__ picks, int width, int n, int k, int steps, int block,
+                    float beta, int warps, int tile_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kRingStages;
+  float* xs = reinterpret_cast<float*>(smem + 16 * kRingStages);
+  const size_t xb = kShared ? ((size_t)n * sizeof(float) + 15) & ~(size_t)15 : 0;
+  unsigned char* ring = smem + 16 * kRingStages + xb;
+  const size_t vregion = ring_region(tile_rows, width, sizeof(V));
+  const size_t bregion = vregion + ring_region(tile_rows, width, sizeof(I));
+  const size_t sbytes = ring_stage_bytes<V, I>(tile_rows, width);
+  const int c = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 32);
+      mbar_init(smem_u32(&empty[s]), warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (kShared) {
+#pragma unroll 4
+    for (int row = threadIdx.x; row < n; row += blockDim.x) xs[row] = x[(size_t)row * k + c];
+  }
+  __syncthreads();
+  float* xc = kShared ? xs : x + c;
+  if (warp == warps)
+    ring_produce(vals, cols, b, k, c, picks, steps, width, block, tile_rows, ring, vregion,
+                 bregion, sbytes, full, empty, lane);
+  else
+    ring_consume<kLanes, kShared, V, I>(xc, scratch ? scratch + (size_t)c * block : nullptr, k,
+                                        picks, steps, width, block, tile_rows, warps, beta,
+                                        ring, vregion, bregion, sbytes, full, empty, warp, lane);
+  if constexpr (kShared) {
+    __syncthreads();
+#pragma unroll 4
+    for (int row = threadIdx.x; row < n; row += blockDim.x) x[(size_t)row * k + c] = xs[row];
   }
 }
 
@@ -560,12 +961,63 @@ int launch_gs(const void* vals, const void* cols, const void* b, void* x, const 
   return (int)cudaGetLastError();
 }
 
+template <typename V, typename I, int kLanes, bool kShared>
+int launch_ring(const void* vals, const void* cols, const void* b, void* x, void* scratch,
+                const void* picks, int width, int n, int k, int steps, int block, float beta,
+                int warps, int tile_rows, cudaStream_t s) {
+  const size_t bytes = ring_smem_bytes<V, I>(n, width, tile_rows, kShared);
+  const cudaError_t err =
+      cudaFuncSetAttribute(bgs_ring_kernel<V, I, kLanes, kShared>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  bgs_ring_kernel<V, I, kLanes, kShared><<<k, 32 * (warps + 1), bytes, s>>>(
+      (const V*)vals, (const I*)cols, (const float*)b, (float*)x, (float*)scratch,
+      (const int*)picks, width, n, k, steps, block, beta, warps, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+template <typename V, typename I, bool kShared>
+int launch_ring_lanes(int lanes, const void* vals, const void* cols, const void* b, void* x,
+                      void* scratch, const void* picks, int width, int n, int k, int steps,
+                      int block, float beta, int warps, int tile_rows, cudaStream_t s) {
+  switch (lanes) {
+    case 1:
+      return launch_ring<V, I, 1, kShared>(vals, cols, b, x, scratch, picks, width, n, k, steps,
+                                           block, beta, warps, tile_rows, s);
+    case 2:
+      return launch_ring<V, I, 2, kShared>(vals, cols, b, x, scratch, picks, width, n, k, steps,
+                                           block, beta, warps, tile_rows, s);
+    case 4:
+      return launch_ring<V, I, 4, kShared>(vals, cols, b, x, scratch, picks, width, n, k, steps,
+                                           block, beta, warps, tile_rows, s);
+    default:
+      return launch_ring<V, I, 32, kShared>(vals, cols, b, x, scratch, picks, width, n, k, steps,
+                                            block, beta, warps, tile_rows, s);
+  }
+}
+
+// tile_rows 0: the first design (bgs_kernel); otherwise the ring design
+// with its plan (kernels/sweep_csr.py::block_plan), checked here.
 template <typename V, typename I>
 int launch_block_gs(const void* vals, const void* cols, const void* b, void* x, void* scratch,
                     const void* picks, int width, int n, int k, int steps, int limit, int block,
-                    float beta, int shared, void* stream) {
+                    float beta, int shared, int lanes, int warps, int tile_rows, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (tile_rows > 0) {
+    const bool ok = (lanes == 1 || lanes == 2 || lanes == 4 || lanes == 32) && warps >= 1 &&
+                    warps <= kRingWarps &&
+                    tile_rows <= warps * (32 / lanes) &&
+                    (tile_rows >= block || scratch != nullptr) &&
+                    ((uintptr_t)vals & 15) == 0 && ((uintptr_t)cols & 15) == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
   launch_check(picks, steps, limit, s);
+  if (tile_rows > 0) {
+    return shared ? launch_ring_lanes<V, I, true>(lanes, vals, cols, b, x, scratch, picks, width,
+                                                  n, k, steps, block, beta, warps, tile_rows, s)
+                  : launch_ring_lanes<V, I, false>(lanes, vals, cols, b, x, scratch, picks, width,
+                                                   n, k, steps, block, beta, warps, tile_rows, s);
+  }
   if (shared) {
     const size_t bytes = sizeof(float) * ((size_t)n + block);
     const cudaError_t err = cudaFuncSetAttribute(
@@ -615,14 +1067,17 @@ int launch_rk(const void* vals, const void* cols, const void* b, const void* rn,
                            shared, stream);                                                      \
   }
 
-// scratch: (k, block) f32 for the global path's gammas (unused, may be
-// null, on the shared-memory path).
+// scratch: (k, block) f32 gammas, for the first design's global path and
+// for ring picks of several tiles (may be null otherwise).  lanes, warps,
+// tile_rows: the plan of kernels/sweep_csr.py::block_plan (tile_rows 0:
+// the first design).
 #define BLOCK_GS_ENTRY(NAME, V, I)                                                               \
   extern "C" int NAME(const void* vals, const void* cols, const void* b, void* x, void* scratch, \
                       const void* picks, int width, int n, int k, int steps, int limit,         \
-                      int block, float beta, int shared, void* stream) {                        \
+                      int block, float beta, int shared, int lanes, int warps, int tile_rows,   \
+                      void* stream) {                                                            \
     return launch_block_gs<V, I>(vals, cols, b, x, scratch, picks, width, n, k, steps, limit,   \
-                                 block, beta, shared, stream);                                   \
+                                 block, beta, shared, lanes, warps, tile_rows, stream);          \
   }
 
 #define RK_ENTRY(NAME, V, I)                                                                     \

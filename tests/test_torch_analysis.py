@@ -84,14 +84,16 @@ def test_kernel_precision_names_the_function():
 
 
 def test_kernel_precision_sees_every_csrc_function():
-    """The scan finds the sweep kernels (and the new block mode) in the
-    real source, so a finding there would be named."""
+    """The scan finds the sweep kernels (and the block mode's two designs:
+    the ring's producer, row dot, consumer and kernel) in the real source,
+    so a finding there would be named."""
     with open(os.path.join(ROOT, "src/repro_torch/csrc/sweep_csr.cu"),
               encoding="utf-8") as f:
         text = kernel_precision.strip_cpp(f.read())
     names = {name for name, *_ in kernel_precision.functions(text)}
     assert {"gs_step", "bgs_row_dot", "bgs_kernel", "rk_step",
-            "launch_block_gs"} <= names
+            "launch_block_gs", "ring_produce", "ring_row_dot",
+            "ring_consume", "bgs_ring_kernel", "launch_ring"} <= names
 
 
 def test_tf32_switched_on_is_flagged():

@@ -17,6 +17,8 @@ solves and sweeps: the iterate and the err_sq / resid records within
 tests/test_torch_block_gs.py): the reference multiplies a densified
 panel, whose sum over a row runs in another order.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -130,13 +132,23 @@ def test_solve_matches_reference_scan(kind, block, storage):
     assert float(got.resid[-1].max()) < float(got.resid[0].max())
 
 
+# Rows wider than 64 slots: the sweep's window tail.
+WIDE = lambda k: ref_spd.random_sparse_spd(N, row_nnz=32, n_rhs=k,  # noqa: E731
+                                           seed=5)
+
+
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("storage", STORAGE, ids=["f32", "bf16"])
-@pytest.mark.parametrize("block", [8, 24])
-def test_plain_block_sweep_matches_reference(block, storage, k):
+@pytest.mark.parametrize("block", [8, 24, 40])   # 24, 40: n % block != 0
+@pytest.mark.parametrize("kind", ["sparse", "wide"])
+def test_plain_block_sweep_matches_reference(kind, block, storage, k,
+                                             monkeypatch):
     """The plain block sweep over a whole stream, from x = 0, against the
-    reference's scan engine on the same stream (one record)."""
-    r, rop, p, op = _pair("sparse", k, storage)
+    reference's scan engine on the same stream (one record); "wide" has
+    rows of more than 64 slots."""
+    monkeypatch.setitem(PROBLEMS, "wide", WIDE)
+    r, rop, p, op = _pair(kind, k, storage)
+    assert (op.padded_rows()[0].shape[1] > 64) == (kind == "wide")
     nd = N // block
     key = jax.random.key(11)
     picks = ref_draw_picks(rop, "gs", key, 2 * nd, block=block)
@@ -301,18 +313,97 @@ def fake_entry(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n, block, override, want_shared", [
-    (16384, 128, None, 1),            # the main path
-    (CAP // 4 - 128, 128, None, 1),   # x and the gammas just fit
-    (CAP // 4 - 127, 128, None, 0),
-    (16384, 128, False, 0),
-    (CAP // 4, 8, True, 1),
+def _edge_n(width, block, vbytes, ibytes):
+    """The largest n whose x and a ring of min(block, a pass, 32) rows a
+    stage fit CAP (the shared-memory path's size rule)."""
+    plan = sweep_csr.block_plan(1, width, block, vbytes, ibytes, CAP)
+    rows = min(block, plan.warps * 32 // plan.lanes, sweep_csr.MIN_TILE_ROWS)
+    ring = sweep_csr.ring_bytes(0, width, rows, vbytes, ibytes, False)
+    return (CAP - ring) // 16 * 16 // 4
+
+
+@pytest.mark.parametrize("vbytes, ibytes", [(4, 4), (2, 2)],
+                         ids=["f32_i32", "bf16_i16"])
+@pytest.mark.parametrize("block", [8, 128, 1000])
+def test_block_plan_at_the_capacity_edge(block, vbytes, ibytes):
+    """x plus the ring: the shared-memory path up to the edge and not past
+    it; a ring plan's barriers, x and stages fit CAP, and its tile is the
+    most rows whose ring fits (up to the block and a pass).  Past the edge
+    a pick of more than GLOBAL_RING_BLOCK rows runs the first design, x in
+    shared memory when x and the gammas fit."""
+    width = 51
+    edge = _edge_n(width, block, vbytes, ibytes)
+    for n, shared in ((16384, True), (edge, True), (edge + 4, False)):
+        plan = sweep_csr.block_plan(n, width, block, vbytes, ibytes, CAP)
+        if not shared and block > sweep_csr.GLOBAL_RING_BLOCK:
+            first = sweep_csr.fits_shared(n + block, CAP)
+            assert plan == sweep_csr.BlockPlan(first, 32, 8, 0), plan
+            continue
+        assert plan.shared is shared, (n, plan)
+        pass_rows = plan.warps * 32 // plan.lanes
+        assert 0 < plan.tile_rows <= min(block, pass_rows)
+        size = functools.partial(sweep_csr.ring_bytes, n, width,
+                                 vbytes=vbytes, ibytes=ibytes, shared=shared)
+        assert size(plan.tile_rows) <= CAP
+        assert plan.tile_rows == min(block, pass_rows) or \
+            size(plan.tile_rows + 1) > CAP
+    # eight warps (a warp a row at block 8), lanes a row as the rows ask
+    plan = sweep_csr.block_plan(16384, width, block, vbytes, ibytes, CAP)
+    assert (plan.warps, plan.lanes) == {8: (8, 32), 128: (8, 2),
+                                        1000: (8, 1)}[block]
+    # the global path keeps the ring up to GLOBAL_RING_BLOCK rows a pick
+    plan = sweep_csr.block_plan(16384, width, block, vbytes, ibytes, CAP,
+                                shared=False)
+    assert not plan.shared
+    assert (plan.tile_rows > 0) == (block <= sweep_csr.GLOBAL_RING_BLOCK)
+
+
+@pytest.mark.parametrize("vbytes, ibytes", [(4, 4), (2, 2)],
+                         ids=["f32_i32", "bf16_i16"])
+@pytest.mark.parametrize("n, want", [
+    (CAP // 4 - 128, sweep_csr.BlockPlan(True, 32, 8, 0)),   # x and the
+    (CAP // 4 - 127, sweep_csr.BlockPlan(False, 32, 8, 0)),  # gammas just fit
 ])
-def test_block_launcher_passes_the_path(fake_entry, n, block, override,
-                                        want_shared):
-    k, width = 3, 5
-    vals = torch.ones((n, width))
-    cols = torch.zeros((n, width), dtype=torch.int32)
+def test_block_plan_first_design_at_the_capacity_edge(n, want, vbytes,
+                                                      ibytes):
+    """Where no ring fits beside x, a pick of 128 rows runs the first
+    design, whose shared-memory path holds x and the block's gammas: up to
+    n + 128 = CAP // 4 and not past it."""
+    assert sweep_csr.block_plan(n, 51, 128, vbytes, ibytes, CAP) == want
+
+
+def test_block_plan_without_a_ring():
+    """Rows too wide for two one-row stages run the first design (tile 0),
+    x in shared memory when x and the gammas fit."""
+    width = CAP // 8
+    assert sweep_csr.block_plan(4096, width, 128, 4, 4, CAP) == \
+        sweep_csr.BlockPlan(True, 32, 8, 0)
+    assert sweep_csr.block_plan(CAP // 4, width, 128, 4, 4, CAP).shared \
+        is False
+    assert sweep_csr.block_plan(4096, width, 128, 4, 4, CAP,
+                                shared=False).shared is False
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.int32),
+                                    (torch.bfloat16, torch.int16)],
+                         ids=["f32_i32", "bf16_i16"])
+@pytest.mark.parametrize("n, block, width, override, want_shared, staged", [
+    (16384, 128, 51, None, 1, False),      # the main path
+    (16384, 8, 51, None, 1, False),
+    (16384, 1000, 51, None, 1, True),      # a pick in several tiles
+    (16384, 128, 51, False, 0, True),      # global: the first design
+    (16384, 8, 51, False, 0, False),       # global: the ring
+    (CAP // 4 - 128, 128, 51, None, 1, False),  # x and the gammas just fit
+    (CAP // 4 - 127, 128, 51, None, 0, True),
+    (CAP // 4, 8, 51, True, 1, False),     # x alone fills CAP: told to
+    (256, 128, CAP // 8, None, 1, False),  # no ring: the first design
+    (256, 128, CAP // 8, False, 0, True),
+])
+def test_block_launcher_passes_the_path(fake_entry, dtypes, n, block, width,
+                                        override, want_shared, staged):
+    k = 3
+    vals = torch.ones((n, width), dtype=dtypes[0])
+    cols = torch.zeros((n, width), dtype=dtypes[1])
     x = torch.zeros((n, k))
     blocks = torch.zeros((7,), dtype=torch.int32)
     kw = {} if override is None else {"_shared": override}
@@ -321,9 +412,33 @@ def test_block_launcher_passes_the_path(fake_entry, n, block, override,
     assert out.shape == x.shape and out.data_ptr() != x.data_ptr()
     (args,) = fake_entry
     assert len(args) == len(sweep_csr._BLOCK_GS_ARGS)
-    assert (args[4] is None) == bool(want_shared)   # the global path's scratch
-    assert args[6:14] == (width, n, k, 7, n // block, block, 0.5, want_shared)
+    assert (args[4] is not None) == staged   # the gammas' scratch
+    plan = sweep_csr.block_plan(n, width, block, vals.element_size(),
+                                cols.element_size(), CAP, shared=override)
+    assert plan.shared == bool(want_shared)
+    assert args[6:17] == (width, n, k, 7, n // block, block, 0.5, want_shared,
+                          *plan[1:])
     assert sweep_csr.LAUNCHES["sweep_rows_block_gs"] == 1
+
+
+def test_block_launcher_aligns_the_windows(fake_entry):
+    """The ring's bulk copies need 16-byte-aligned windows: a view that
+    starts elsewhere is copied first; an aligned one is passed as it is."""
+    n, width, k = 64, 5, 2
+    vals = torch.ones((n + 1, width))[1:]
+    cols = torch.zeros((n + 1, width), dtype=torch.int32)[1:]
+    assert vals.data_ptr() % 16 and cols.data_ptr() % 16
+    x = torch.zeros((n, k))
+    blocks = torch.zeros((3,), dtype=torch.int32)
+    sweep_csr.sweep_rows_block_gs(vals, cols, x, x, blocks, block=8, beta=1.0,
+                                  limit=n // 8)
+    aligned = torch.ones((n, width))
+    sweep_csr.sweep_rows_block_gs(aligned, cols.clone(), x, x, blocks,
+                                  block=8, beta=1.0, limit=n // 8)
+    first, second = fake_entry
+    assert first[0] % 16 == 0 and first[1] % 16 == 0
+    assert first[0] != vals.data_ptr()
+    assert second[0] == aligned.data_ptr()
 
 
 @pytest.mark.parametrize("k, steps", [(0, 4), (3, 0)])
