@@ -46,7 +46,13 @@ sequential and distributed passes of ``launch.solve`` and ``launch.lsq``
 (in process and as children: ``launch.lsq --workers 4`` dense, and on
 CSR with a2a, overlap and the int8 wire) and times a
 served chunk from Python, from a CUDA graph and with the host's per-chunk
-reads.  It holds the two paths of the GS and of both
+reads.  It drives the paper's figure and theorem drivers
+(``repro_torch.paper``: ``theory_validation``, ``fig1_residual`` and
+``fig3_async_penalty`` at the reference's defaults, ``fig2_scaling`` on 1,
+2, 4 and 8 gloo ranks) and both examples (``repro_torch.examples``),
+replays the card's fig3 and fig2 streams on the CPU against the card's
+residuals, and times one CSR GS and one CSR RK sweep with its record from a CUDA graph
+against ``repro_torch.roofline.sweep_roofline``.  It holds the two paths of the GS and of both
 Kaczmarz sweeps (the iterate in shared memory, or in global memory when it
 is too tall) against the plain version and against each other (the
 Kaczmarz sweeps also on rows wider than the main path's), the two banded
@@ -68,7 +74,8 @@ k = 51 solve.  It
 checks what comes out, shows from the
 launch counters (set to 0 just before each path and read just after) that
 each path ran its kernels and nothing else, and times each kernel beside
-its plain version, its roofline bound and, where one exists, a PyTorch
+its plain version, its roofline bound (``repro_torch.roofline``, with
+the bytes and operations it reads) and, where one exists, a PyTorch
 library call computing the same function, launched from Python and
 replayed from a CUDA graph.
 
@@ -92,11 +99,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
-# data sheet): HBM bandwidth and the f32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 
 DEVICE = "cuda"
 SEED = 0
@@ -316,6 +318,25 @@ CSR_BGS_WIDE_NNZ, CSR_BGS_NORING = 40, (2048, 15000)
 # Lanczos (64 iterations) against eigvalsh at SIM_N; rk_rho of the main
 # LSQ design in f32 against the same function in f64 by row blocks.
 LANCZOS_RTOL, RK_RHO_RTOL = 1e-3, 1e-4
+# The paper's drivers and the two examples (paper_phase), each at the
+# reference's defaults (fig3's 30 simulated solves of 10240 steps too);
+# fig2 at n = PAPER_FIG2_N on PAPER_WORKERS gloo ranks sharing the card.
+# Checks: fig3's consistent-read penalty at most PAPER_PENALTY_MAX at
+# every tau (the reference's: 1.00-1.18x), fig2's residual at P = 1 at
+# most PAPER_P1_RESID of ||b|| after its 10 rounds: a 50-fold fall, not
+# 100-fold, because a stream that leaves a coordinate unpicked for 10
+# sweeps (e^-10 a coordinate: about 4.5% of streams at n = 1024) stalls
+# near 1e-2, and the card's seed-0 stream is one (1.248e-2; seeds 1-3
+# reach 1.1e-3 to 1.8e-3).  The card's own streams replayed on the CPU
+# (the same problem; fig3's at its largest tau, fig2's at P = 1): every
+# residual within PAPER_REPLAY_RTOL of the card's, so a wrong kernel or
+# simulator step fails whatever the streams' luck.  Then one CSR GS and
+# one CSR RK sweep of the main path and its record, PAPER_GRAPH_CALLS a
+# CUDA graph, against roofline.sweep_roofline.
+PAPER_FIG2_N, PAPER_WORKERS = 1024, (1, 2, 4, 8)
+PAPER_PENALTY_MAX, PAPER_P1_RESID, PAPER_REPLAY_RTOL = 1.5, 2e-2, 1e-4
+PAPER_GRAPH_CALLS = 3
+PAPER_DENSE_PICKS = 2048    # picks of the dense coordinate sweeps' timing
 
 
 class SmokeFailure(RuntimeError):
@@ -379,10 +400,19 @@ def graph_ms(fn, calls: int):
     return ms
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(work) -> tuple[float, str]:
+    """The least ms this card takes for ``work`` (a ``roofline.Work``) and
+    what bounds it: the card's published peaks in ``repro_torch.roofline``
+    (a card without them raises)."""
+    import torch
+
+    from repro_torch import roofline
+    return roofline.bound_ms(work, torch.cuda.get_device_name(0))
+
+
+def work_keys(work) -> dict:
+    """A kernel entry's ``bytes`` and ``flops``: the work its bound reads."""
+    return dict(bytes=work.bytes, flops=work.flops)
 
 
 def rel(a, b) -> float:
@@ -519,7 +549,7 @@ def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches,
     sweep_rows_rk_delta for the kernels' line."""
     import math
 
-    from repro_torch import Schedule, random_lsq, solve, theory
+    from repro_torch import Schedule, random_lsq, roofline, solve, theory
     from repro_torch.kernels import ref, sweep_csr
     from repro_torch.launch.mesh import process_group
 
@@ -620,9 +650,9 @@ def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches,
         *args, x, zero, picks), 1)
     # bytes: per pick its window (n values, n ids), its b row, rn and id;
     # both carries once in and once out.  flops: 6 n k + 3 k a pick.
-    b_ms, by = bound_ms(DENSE_RK_STEPS * (n * 8 + K * 4 + 8)
-                        + 2 * 2 * n * K * 4,
-                        DENSE_RK_STEPS * (6.0 * n * K + 3.0 * K))
+    work = roofline.sweep_rows_rk_delta_window(
+        DENSE_RK_STEPS, n, K, value_dtype=vals.dtype, index_dtype=cols.dtype)
+    b_ms, by = bound_ms(work)
     print(f"  sweep_rows_rk_delta, one dense_rk round ({DENSE_RK_STEPS} picks "
           f"of width {n}, k={K}): {ms:.4f} ms ({ms * 1e3 / DENSE_RK_STEPS:.3f}"
           f" us/pick); plain {plain_ms:.2f} ms for {DENSE_CHECK_PICKS} picks; "
@@ -630,6 +660,7 @@ def engine_rest_p1_phase(torch, ops, lsq, spd, banded, launches,
     extra = dict(dense_ms=ms, dense_us_per_pick=ms * 1e3 / DENSE_RK_STEPS,
                  dense_plain_ms=plain_ms, dense_plain_picks=DENSE_CHECK_PICKS,
                  dense_bound_ms=b_ms, dense_bound_by=by,
+                 dense_bytes=work.bytes, dense_flops=work.flops,
                  dense_max_abs_err=max_abs)
     del vals, cols, got, want, glob, one
 
@@ -2255,8 +2286,250 @@ def csr_block_gs_phase(torch, ops, ref, sweep_csr, spd, drive, smi):
               flush=True)
     return solves, dict(errs=errs, chunks=chunks, op=op, x0=x0)
 
+def paper_phase(torch, ops, spd, lsq, launches, smi: str) -> None:
+    """The paper's figure and theorem drivers (``repro_torch.paper``) and
+    the two examples (``repro_torch.examples``) on the card through their
+    entry points, each with the launch counters set to 0 just before it
+    and read just after: the dense solves launch ``colsum`` (records, CG's
+    dots) and fig2's P = 1 rounds ``block_gs_sweep`` (the ranks it spawns
+    count their own).  Then one sweep of the main path on CSR, GS and RK
+    (the sweep and its record), driven through ``solve`` with its launches
+    counted exactly, and timed from a CUDA graph against
+    ``roofline.sweep_roofline``.  Every driven path's launches go into
+    ``launches``."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch import DenseOp, Schedule, as_operator, roofline, solve
+    from repro_torch.core.engine import draw_picks, record_metrics, sweep
+    from repro_torch.examples import quickstart, solve_regression
+    from repro_torch.paper import (fig1_residual, fig2_scaling,
+                                   fig3_async_penalty, theory_validation)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    def driven(tag, kernels, run):
+        """``run()`` with its printed lines kept (printed after it,
+        prefixed); it must launch each of ``kernels`` and no other."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for line in buf.getvalue().splitlines():
+            print(f"    [{tag}] {line}", flush=True)
+        ran = {name: n for name, n in got.items() if n}
+        check(set(ran) == set(kernels), f"{tag}: launched {sorted(kernels)} "
+              f"and no other kernel ({ran}); {wall:.2f} s wall [{smi}]")
+        for name, n in got.items():
+            launches[name] += n
+        return out
+
+    def measured(driver):
+        out = driver.measure()
+        driver.report(out)
+        return out
+
+    def falls(resid):
+        """Relative residual norms by record, each at most the last."""
+        norms = torch.linalg.vector_norm(resid.double(), dim=1).cpu()
+        return (bool(torch.isfinite(norms).all())
+                and bool((norms[1:] <= norms[:-1] * (1 + MONO_RTOL)).all()))
+
+    tv = driven("theory_validation", {"colsum"},
+                lambda: measured(theory_validation))
+    ll, t41, t61 = tv["ll"], tv["thm41a"], tv["thm61"]
+    check(ll["satisfied"] == 1, f"theory_validation: the Leventhal-Lewis "
+          f"rate holds (measured E_m {ll['measured_mean']:.4e} <= 1.5 x "
+          f"bound {ll['bound']:.4e})")
+    check(t41["satisfied"] == 1, f"theory_validation: Thm 4.1(a) holds "
+          f"(measured {t41['measured']:.5f} <= 1.2 x factor "
+          f"{t41['factor_bound']:.5f})")
+    check(t61["converged"] == 1, f"theory_validation: Thm 6.1 converges "
+          f"(E_8n / E_0 {t61['err_ratio_8n']:.3e} < 0.05)")
+
+    rgs_r, cg_r = driven("fig1_residual", {"colsum"}, fig1_residual.run)
+    check(bool(np.isfinite(rgs_r).all() and (np.diff(rgs_r) <= 0).all()),
+          f"fig1_residual: the RGS residual falls by sweep ({rgs_r[0]:.3e} "
+          f"to {rgs_r[-1]:.3e})")
+    print(f"  fig1_residual: CG residual monotone "
+          f"{int(bool(np.all(np.diff(cg_r) < 0)))} (printed, not checked: "
+          f"at the f32 floor, {cg_r[-1]:.2e} of ||b||, one ulp can tick it "
+          "up)", flush=True)
+
+    f3 = driven("fig3_async_penalty", {"colsum"},
+                lambda: measured(fig3_async_penalty))
+    for row in f3["rows"]:
+        if row["model"] == "consistent":
+            check(row["penalty"] <= PAPER_PENALTY_MAX,
+                  f"fig3_async_penalty: consistent reads at tau "
+                  f"{row['tau']} cost {row['penalty']:.3f}x the sync "
+                  f"residual <= {PAPER_PENALTY_MAX}x")
+
+    f2 = driven("fig2_scaling", {"block_gs_sweep", "colsum"},
+                lambda: fig2_scaling.run(PAPER_FIG2_N,
+                                         workers=PAPER_WORKERS))
+    check([rec["P"] for rec in f2] == list(PAPER_WORKERS),
+          f"fig2_scaling: a record at every worker count {PAPER_WORKERS}")
+    for rec in f2:
+        local = PAPER_FIG2_N // rec["P"]
+        check(rec["tau"] == (rec["P"] - 1) * local and rec["x_finite"]
+              and rec["iters_per_worker"] == 10 * local,
+              f"fig2_scaling P = {rec['P']}: tau {rec['tau']} = (P - 1) n / "
+              f"P, x finite on every rank, resid {rec['resid']:.3e}, "
+              f"{rec['wall_s']:.2f} s wall, all-gather "
+              f"{rec['ring_wire_bytes']:.0f} B a rank and round")
+    check(f2[0]["resid"] <= PAPER_P1_RESID, f"fig2_scaling: the residual "
+          f"falls 50-fold at P = 1 ({f2[0]['resid']:.3e} <= "
+          f"{PAPER_P1_RESID:g})")
+
+    # The card's streams on the CPU: fig3's and fig2's problem (its matrix
+    # built on the host, b and x* on the card), fig3's default streams at
+    # its largest tau as the card draws them (fig3_async_penalty.streams),
+    # and fig2's P = 1 stream as the card's rank 0 draws it (seed 0 * P +
+    # rank).  Not counted: these runs compare, they drive nothing.
+    cpu = torch.device("cpu")
+    prob = fig3_async_penalty.default_problem(PAPER_FIG2_N, dev)
+    prob = prob._replace(**{f: getattr(prob, f).to(cpu)
+                            for f in prob._fields})
+    tau = fig3_async_penalty.TAUS[-1]
+    picks, delays = fig3_async_penalty.streams(
+        prob.n, fig3_async_penalty.SWEEPS * prob.n, (tau,),
+        fig3_async_penalty.TRIALS, dev)
+    t0 = time.perf_counter()
+    rep3 = fig3_async_penalty.measure(
+        taus=(tau,), problem=prob, picks=picks.to(cpu),
+        delays={key: [d.to(cpu) for d in ds] for key, ds in delays.items()})
+    card3 = [row for row in f3["rows"] if row["tau"] == tau]
+    pairs = [(f3["sync"], rep3["sync"])] + [
+        pair for c, h in zip(card3, rep3["rows"])
+        for pair in zip(c["resids"], h["resids"])]
+    err = max(abs(h / c - 1) for c, h in pairs)
+    check(len(pairs) == 1 + 2 * fig3_async_penalty.TRIALS
+          and err <= PAPER_REPLAY_RTOL,
+          f"fig3_async_penalty on the CPU with the card's streams at tau "
+          f"{tau}: the sync and every trial's residual within rel "
+          f"{err:.2e} <= {PAPER_REPLAY_RTOL:g} of the card's; consistent "
+          f"penalty {rep3['rows'][0]['penalty']:.3f}x on the CPU, "
+          f"{card3[0]['penalty']:.3f}x on the card "
+          f"({time.perf_counter() - t0:.2f} s)")
+    rounds = f2[0]["sync_rounds"]
+    p1 = torch.randint(0, PAPER_FIG2_N, (rounds, 1, PAPER_FIG2_N),
+                       generator=torch.Generator(dev).manual_seed(0),
+                       device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep2 = fig2_scaling.run(PAPER_FIG2_N, rounds, (1,), problem=prob,
+                                picks={1: p1.to(cpu)})
+    err = abs(rep2[0]["resid"] / f2[0]["resid"] - 1)
+    check(err <= PAPER_REPLAY_RTOL, f"fig2_scaling at P = 1 on the CPU with "
+          f"the card's stream: residual {rep2[0]['resid']:.4e} within rel "
+          f"{err:.2e} <= {PAPER_REPLAY_RTOL:g} of the card's "
+          f"{f2[0]['resid']:.4e}")
+
+    qs = driven("quickstart", {"colsum"}, lambda: quickstart.main([]))
+    check(falls(qs["sync"].resid), "quickstart: the sync RGS residual "
+          "falls by sweep")
+    reg = driven("solve_regression", {"colsum"},
+                 lambda: solve_regression.main([]))
+    check(falls(reg["sync"].resid), "solve_regression: the sync RK "
+          "residual falls by sweep")
+
+    # The dense coordinate sweeps these drivers run (DenseOp.gs_sweep and
+    # rk_sweep: a few PyTorch calls a pick, no kernel, as the reference's
+    # lax.scan has none), on the host clock at the drivers' shapes: fig2's
+    # n with 4 columns, and solve_regression's X with 51.
+    gen = torch.Generator(dev).manual_seed(SEED + 62)
+    X, Y, _ = (torch.from_numpy(a).to(dev)
+               for a in solve_regression.build_problem())
+    gs_op = DenseOp(torch.eye(PAPER_FIG2_N, device=dev))
+    rk_op = DenseOp(X)
+    rn = rk_op.row_norms_sq()
+    for tag, op, b, step in (
+            ("gs_sweep", gs_op, torch.ones((PAPER_FIG2_N, 4), device=dev),
+             lambda b, x, p: gs_op.gs_sweep(b, x, p)),
+            ("rk_sweep", rk_op, Y,
+             lambda b, x, p: rk_op.rk_sweep(b, rn, x, p))):
+        m, n = op.shape
+        k = b.shape[1]
+        x = torch.zeros((n, k), device=dev)
+        picks = torch.randint(0, m, (PAPER_DENSE_PICKS,), generator=gen,
+                              device=dev)
+        step(b, x, picks[:8])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(b, x, picks)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) * 1e6 / PAPER_DENSE_PICKS
+        print(f"  DenseOp.{tag} on {m}x{n}, k={k}: {us:.2f} us a pick on the "
+              f"host clock ({PAPER_DENSE_PICKS} picks; no kernel) [{smi}]",
+              flush=True)
+    del X, Y, gs_op, rk_op
+
+    print(f"== time per sweep against its roofline (CSR, k={K}: a sweep and "
+          "its record)", flush=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 61)
+    card = torch.cuda.get_device_name(0)
+    for action, prob, kernel in (("gs", spd, "sweep_rows_gs"),
+                                 ("rk", lsq, "sweep_rows_rk")):
+        op = as_operator(prob.A, "csr")
+        m, n = op.shape
+        picks = draw_picks(op, action, m, generator=gen).to(
+            torch.int32).contiguous()
+        matvecs = 2 if action == "gs" else 1
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        solve(prob, format="csr", picks=picks,
+              schedule=Schedule(num_iters=m, record_every=m))
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        mv = got["spmv_csr_sliced"] + got["spmv_csr_sliced_prefetch"]
+        check(got[kernel] == 1 and got["colsum"] == 2 and mv == matvecs
+              and sum(got.values()) == 3 + matvecs,
+              f"one CSR {action.upper()} sweep through solve: one {kernel}, "
+              f"{matvecs} sliced matvec(s), two colsum and nothing else "
+              f"({ {k: v for k, v in got.items() if v} })")
+        for name, c in got.items():
+            launches[name] += c
+        x0 = torch.zeros_like(prob.x_star)
+        rn = op.row_norms_sq() if action == "rk" else None
+        norm = "A" if action == "gs" else "euclid"
+
+        def chunk(op=op, prob=prob, picks=picks, x0=x0, rn=rn, norm=norm,
+                  action=action):
+            x = sweep(op, prob.b, x0, picks, action=action, beta=1.0,
+                      block=1, rn=rn)
+            return record_metrics(op, prob.b, x, prob.x_star, norm=norm)
+
+        ms = graph_ms(chunk, PAPER_GRAPH_CALLS)
+        vals, cols = op.padded_rows()
+        roof = roofline.sweep_roofline(
+            action, picked_nnz=float(op.row_nnz[picks.long()].double().sum()),
+            picks=m, nnz=op.nnz, m=m, n=n, k=K,
+            counts=op.stop_counts(K) is not None, device_name=card,
+            value_dtype=vals.dtype, index_dtype=cols.dtype)
+        share = roof.share(ms)
+        check(0.0 < share <= 1.0, f"CSR {action.upper()}: a sweep's roofline "
+              f"share {share:.3e} in (0, 1]")
+        print(f"  time per sweep against its roofline, CSR {action.upper()} "
+              f"({m}x{n}, {m} picks and one record, k={K}): {ms:.4f} ms "
+              f"from a CUDA graph; roofline {roof.ms:.5f} ms "
+              f"({roof.bound_by}; sweep {roof.sweep.bytes:.0f} B and "
+              f"{roof.sweep.flops:.0f} flops, record {roof.record.bytes:.0f} "
+              f"B and {roof.record.flops:.0f} flops); share {share:.3e} "
+              f"[{smi}]", flush=True)
+    print(f"  the paper's phase: {time.perf_counter() - t_phase:.1f} s wall",
+          flush=True)
+
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2270,7 +2543,8 @@ def main() -> int:
     try:
         from repro_torch import (Schedule, a_norm_sq, as_operator,
                                  block_banded_spd, laplacian_spd,
-                                 random_sparse_lsq, random_sparse_spd, solve)
+                                 random_sparse_lsq, random_sparse_spd,
+                                 roofline, solve)
         from repro_torch.core import ell_from_dense
         from repro_torch.core import partition, theory
         from repro_torch.core.distributed import (_a2a_plan,
@@ -3791,23 +4065,23 @@ def main() -> int:
           flush=True)
     sequential_cli_phase(torch, ops, lsq, launches)
 
+    print("== the paper's figures, the theorems and the examples", flush=True)
+    paper_phase(torch, ops, spd, lsq, launches, smi)
+
     print(f"== timing (CUDA events, f32/i32 storage, k={K})", flush=True)
     lines = []
-    val_b, idx_b = 4, 4
 
-    def sweep_entry(name, op, run, run_plain, picks, per_pick_flops,
-                    extra_bytes_per_pick, source_line, carries=1, **extra):
+    def sweep_entry(name, op, run, run_plain, picks, source_line, **extra):
+        """Time a row sweep beside its bound (``roofline.<name>`` on the
+        picked rows' stored nonzeros and the operator's dtypes)."""
         ms = cuda_ms(run, 10)
         g_ms = graph_ms(run, 10)
         plain = cuda_ms(run_plain, 1)
-        nnz_r = op.row_nnz[picks.long()].double()
-        k = K
-        n_x = op.shape[1]
-        nbytes = (float(nnz_r.sum()) * (val_b + idx_b)
-                  + picks.numel() * (k * 4 + 4 + extra_bytes_per_pick)
-                  + 2 * carries * n_x * k * 4)
-        flops = float(per_pick_flops(nnz_r).sum())
-        b_ms, by = bound_ms(nbytes, flops)
+        vals_, cols_ = op.padded_rows()
+        work = getattr(roofline, name)(
+            float(op.row_nnz[picks.long()].double().sum()), picks.numel(),
+            op.shape[1], K, value_dtype=vals_.dtype, index_dtype=cols_.dtype)
+        b_ms, by = bound_ms(work)
         print(f"  {name}: {ms:.4f} ms for {picks.numel()} picks "
               f"({ms * 1e3 / picks.numel():.4f} us/pick); plain "
               f"{plain:.2f} ms; bound {b_ms:.5f} ms ({by})", flush=True)
@@ -3817,7 +4091,7 @@ def main() -> int:
             replaces=source_line, launches=launches[name],
             max_abs_err=errs[(name, None)], ms=ms, plain_ms=plain,
             bound_ms=b_ms, bound_by=by, library_ms=None, graph_ms=g_ms,
-            **extra))
+            **work_keys(work), **extra))
 
     # sweep_rows_gs: "ms" is the shared-memory path the wrapper takes at
     # this n, "global_ms" the global path on the same inputs (the bare
@@ -3834,8 +4108,7 @@ def main() -> int:
         "sweep_rows_gs", op,
         lambda: ops.sweep_rows_gs(vals, cols, spd.b, x_spd, gs_picks),
         lambda: ref.sweep_rows_gs_ref(vals, cols, spd.b, x_spd, gs_picks),
-        gs_picks, lambda z: 2 * z * K + 3 * K, 0,
-        "src/repro/kernels/sweep_csr.py:135", global_ms=global_ms,
+        gs_picks, "src/repro/kernels/sweep_csr.py:135", global_ms=global_ms,
         global_max_abs_err=errs["sweep_rows_gs_global"])
     # The RK sweeps likewise: "ms" is the shared-memory path the wrapper
     # takes at n = LSQ_N, "global_ms" the global path on the same inputs.
@@ -3854,8 +4127,8 @@ def main() -> int:
                                   rk_picks[None]),
         lambda: ref.sweep_rows_rk_ref(vals_l, cols_l, lsq.b, rn_l, x_lsq,
                                       rk_picks[None]),
-        rk_picks[None], lambda z: 5 * z * K + 3 * K, 4,
-        "src/repro/kernels/sweep_csr.py:181", global_ms=global_ms,
+        rk_picks[None], "src/repro/kernels/sweep_csr.py:181",
+        global_ms=global_ms,
         global_max_abs_err=errs["sweep_rows_rk_global"])
 
     # The two-carry sweep on rank 0's slab at P = 4 (its rows are the
@@ -3871,8 +4144,7 @@ def main() -> int:
         "sweep_rows_rk_delta", op_l,
         lambda: ops.sweep_rows_rk_delta(*args, x_lsq, d_lsq, picks),
         lambda: ref.sweep_rows_rk_delta_ref(*args, x_lsq, d_lsq, picks),
-        picks, lambda z: 6 * z * K + 3 * K, 4,
-        "src/repro/kernels/sweep_csr.py:258", carries=2, global_ms=global_ms,
+        picks, "src/repro/kernels/sweep_csr.py:258", global_ms=global_ms,
         global_max_abs_err=errs["sweep_rows_rk_delta_global"],
         **rest["extra"])
     full_delta = sample_rows(rn_l, LSQ_M, generator=gen)
@@ -3970,15 +4242,20 @@ def main() -> int:
         name, run, plain = csr_matvec(op, x, variant)
         ms = cuda_ms(run, 50)
         k = x.shape[1]
-        nbytes = (op.nnz * (val_b + idx_b) + op.shape[1] * k * 4
-                  + op.shape[0] * k * 4)
-        if variant.startswith("segsum"):
-            nbytes += op.shape[0] * 8
-        if variant.endswith("_prefetch"):
-            nbytes += op.panel_nnz().numel() * 4
-        if variant.startswith("sliced") and op.stop_counts(k) is not None:
-            nbytes += op.shape[0] * 4
-        b_ms, by = bound_ms(nbytes, 2.0 * op.nnz * k)
+        shape = (op.nnz, *op.shape, k)
+        dt = dict(value_dtype=op.data.dtype, index_dtype=op.indices.dtype)
+        panels = op.panel_nnz().numel()
+        counts = op.stop_counts(k) is not None
+        work = {
+            "sliced": lambda: roofline.spmv_csr_sliced(*shape, counts=counts,
+                                                       **dt),
+            "sliced_prefetch": lambda: roofline.spmv_csr_sliced_prefetch(
+                *shape, panels, counts=counts, **dt),
+            "segsum": lambda: roofline.spmv_csr(*shape, **dt),
+            "segsum_prefetch": lambda: roofline.spmv_csr_prefetch(
+                *shape, panels, **dt),
+        }[variant]()
+        b_ms, by = bound_ms(work)
         head = f"  {name} {op.shape} nnz={op.nnz}: {ms:.4f} ms"
         if source_line is None:
             print(f"{head}; bound {b_ms:.5f} ms ({by})", flush=True)
@@ -3994,7 +4271,8 @@ def main() -> int:
                     source="src/repro_torch/csrc/spmv_csr.cu",
                     replaces=source_line, launches=launches[name],
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, library_ms=lib_ms, graph_ms=graph_ms(run, 50))
+                    bound_by=by, library_ms=lib_ms, graph_ms=graph_ms(run, 50),
+                    **work_keys(work))
 
     lines.append(spmv_entry("sliced", ops_by[("spd", None)], x_spd,
                             errs[("spmv_csr_sliced", None, "spd")],
@@ -4021,8 +4299,10 @@ def main() -> int:
     lib_ms = cuda_ms(lib, 50)
     nnz = ops_by[("spd", None)].nnz
     stored = int(op.row_counts().sum())
-    b_ms, by = bound_ms(stored * (val_b + idx_b) + SPD_N * 4
-                        + 2 * SPD_N * K * 4, 2.0 * nnz * K)
+    work = roofline.spmv_ell(stored, SPD_N, SPD_N, K, counts=True,
+                             value_dtype=op.vals.dtype,
+                             index_dtype=op.cols.dtype)
+    b_ms, by = bound_ms(work)
     print(f"  spmv_ell n={SPD_N} width={ell_width} nnz={nnz}: {ms:.4f} ms; "
           f"plain {plain_ms:.4f} ms; torch.sparse.mm {lib_ms:.4f} ms; bound "
           f"{b_ms:.5f} ms ({by})", flush=True)
@@ -4032,7 +4312,8 @@ def main() -> int:
                       launches=launches["spmv_ell"],
                       max_abs_err=errs[("spmv_ell", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms, graph_ms=graph_ms(run, 50)))
+                      library_ms=lib_ms, graph_ms=graph_ms(run, 50),
+                      **work_keys(work)))
 
     # bbmv: the banded operator's tiles.  Bytes: the tiles inside the
     # matrix (the kernel never reads the others), x once, y once; flops:
@@ -4045,8 +4326,9 @@ def main() -> int:
     plain_ms = cuda_ms(functools.partial(ref.bbmv_ref, op.A_bands, x_band,
                                          bands=BANDS, block=BLOCK), 3)
     tiles = int(ref.band_valid(nb, BANDS, dev).sum())
-    b_ms, by = bound_ms(tiles * BLOCK * BLOCK * val_b + 2 * SPD_N * K * 4,
-                        2.0 * tiles * BLOCK * BLOCK * K)
+    work = roofline.bbmv(tiles, BLOCK, SPD_N, K,
+                         value_dtype=op.A_bands.dtype)
+    b_ms, by = bound_ms(work)
     # Only PyTorch's own calls sit in the try: a PyTorch build without a
     # CUDA BSR product for f32 raises there, and that alone makes the
     # yardstick null.  The agreement check and the timing stay outside,
@@ -4074,7 +4356,8 @@ def main() -> int:
                       launches=launches["bbmv"],
                       max_abs_err=errs[("bbmv", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms, graph_ms=graph_ms(run, 50)))
+                      library_ms=lib_ms, graph_ms=graph_ms(run, 50),
+                      **work_keys(work)))
 
     # banded_gs_sweep: one main-path chunk (nb picks).  Bytes, by the
     # sweeps' rule: per pick its 2*bands+1 tiles, its b block and its id,
@@ -4094,9 +4377,9 @@ def main() -> int:
     plain_ms = cuda_ms(functools.partial(
         ref_banded.banded_gs_sweep_ref, packed, banded.b, xw_band,
         band_picks, block=BLOCK, bands=BANDS), 1)
-    per_pick = (2 * BANDS + 1) * BLOCK * BLOCK * val_b + BLOCK * K * 4 + 4
-    b_ms, by = bound_ms(nb * per_pick + 2 * xw_band.numel() * 4,
-                        2.0 * nb * (2 * BANDS + 1) * BLOCK * BLOCK * K)
+    work = roofline.banded_gs_sweep(nb, BLOCK, BANDS, xw_band.shape[0], K,
+                                    value_dtype=packed.dtype)
+    b_ms, by = bound_ms(work)
     print(f"  banded_gs_sweep, one main-path chunk ({nb} picks): {ms:.4f} ms "
           f"({ms * 1e3 / nb:.3f} us/pick); global path {global_ms:.4f} ms; "
           f"plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}); no library "
@@ -4107,7 +4390,8 @@ def main() -> int:
                       launches=launches["banded_gs_sweep"],
                       max_abs_err=errs[("banded_gs_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=None, graph_ms=g_ms, global_ms=global_ms))
+                      library_ms=None, graph_ms=g_ms, global_ms=global_ms,
+                      **work_keys(work)))
 
     # banded_rk_sweep: the P = 4 check round (rank 1's window, mixed
     # gates) and one P = 1 main-path round (nb picks, every gate 1, on the
@@ -4117,12 +4401,9 @@ def main() -> int:
     # b block, row norms, id and gate, and 2 * 2 * block^2 * k flops per
     # tile read (A x, then A^T gn); both windows once in and once out.  No
     # library call computes this serial chain.
-    per_pick = ((2 * BANDS + 1) * BLOCK * BLOCK * val_b + BLOCK * K * 4
-                + BLOCK * 4 + 8)
-
-    def rk_bound(owned, window_elems):
-        return bound_ms(owned * per_pick + 2 * 2 * window_elems * 4,
-                        4.0 * owned * (2 * BANDS + 1) * BLOCK * BLOCK * K)
+    def rk_work(owned, tiles, window):
+        return roofline.banded_rk_sweep(owned, BLOCK, BANDS, window.shape[0],
+                                        K, value_dtype=tiles.dtype)
 
     args, xw = rk_args["banded_rk_sweep"]
     run = functools.partial(ops.banded_rk_sweep, *args, xw, dw_band, lic,
@@ -4137,7 +4418,8 @@ def main() -> int:
         ref_banded.banded_rk_sweep_ref, *args, xw, dw_band, lic, gates,
         block=BLOCK, bands=BANDS), 1)
     owned = int(gates.sum())
-    b_ms, by = rk_bound(owned, xw.numel())
+    work = rk_work(owned, args[0], xw)
+    b_ms, by = bound_ms(work)
     print(f"  banded_rk_sweep, one P = {P4} round ({P4_BANDED_STEPS} picks, "
           f"{owned} owned): {ms:.4f} ms ({ms * 1e3 / P4_BANDED_STEPS:.3f} "
           f"us/pick); global path {global_ms:.4f} ms; plain {plain_ms:.2f} "
@@ -4154,7 +4436,7 @@ def main() -> int:
     global_p1 = cuda_ms(lambda: _banded.banded_rk_sweep(
         *p1_args[:-1], rk_round.to(torch.int32), ones, block=BLOCK,
         bands=BANDS, beta=1.0, limit=nb, _shared=False), 5)
-    b_p1, by_p1 = rk_bound(nb, xw_band.numel())
+    b_p1, by_p1 = bound_ms(rk_work(nb, p1_args[0], xw_band))
     print(f"  banded_rk_sweep, one P = 1 main-path round ({nb} picks, all "
           f"owned): {ms_p1:.4f} ms ({ms_p1 * 1e3 / nb:.3f} us/pick); global "
           f"path {global_p1:.4f} ms; bound {b_p1:.5f} ms ({by_p1})",
@@ -4166,7 +4448,7 @@ def main() -> int:
                       max_abs_err=errs[("banded_rk_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                       library_ms=None, graph_ms=g_ms, global_ms=global_ms,
-                      p1_ms=ms_p1,
+                      **work_keys(work), p1_ms=ms_p1,
                       p1_global_ms=global_p1, p1_bound_ms=b_p1,
                       p1_bound_by=by_p1))
 
@@ -4188,9 +4470,9 @@ def main() -> int:
     plain_ms = cuda_ms(functools.partial(
         ref.block_gs_sweep_ref, A_dense, banded.b, x_band, dense_picks,
         block=BLOCK), 1)
-    per_pick = BLOCK * SPD_N * val_b + BLOCK * K * 4 + 4
-    b_ms, by = bound_ms(nb * per_pick + 2 * x_band.numel() * 4,
-                        nb * (2.0 * BLOCK * SPD_N * K + 3.0 * BLOCK * K))
+    work = roofline.block_gs_sweep(nb, BLOCK, SPD_N, K,
+                                   value_dtype=A_dense.dtype)
+    b_ms, by = bound_ms(work)
     panel = A_dense[:BLOCK]
     props = torch.cuda.get_device_properties(dev)
     bgs_limits = (props.multi_processor_count,
@@ -4230,7 +4512,7 @@ def main() -> int:
                       max_abs_err=errs[("block_gs_sweep", None)], ms=ms,
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                       library_ms=None, us_per_pick=ms * 1e3 / nb,
-                      bf16_ms=ms_bf16))
+                      bf16_ms=ms_bf16, **work_keys(work)))
 
     # sweep_rows_block_gs: one main-path chunk at the last of
     # CSR_BGS_BLOCKS (a sweep: SPD_N // block picks).  Bytes, by the
@@ -4243,11 +4525,11 @@ def main() -> int:
     vals_b, cols_b = op_b.padded_rows()
     rows_b = (chunk["picks"].long()[:, None] * blk
               + torch.arange(blk, device=dev)[None, :]).reshape(-1)
-    nnz_r = op_b.row_nnz[rows_b].double()
-    b_ms, by = bound_ms(
-        float(nnz_r.sum()) * (val_b + idx_b) + rows_b.numel() * K * 4
-        + chunk["picks"].numel() * 4 + 2 * SPD_N * K * 4,
-        float((2 * nnz_r * K + 3 * K).sum()))
+    work = roofline.sweep_rows_block_gs(
+        float(op_b.row_nnz[rows_b].double().sum()), rows_b.numel(),
+        chunk["picks"].numel(), SPD_N, K, value_dtype=vals_b.dtype,
+        index_dtype=cols_b.dtype)
+    b_ms, by = bound_ms(work)
     plain_ms = cuda_ms(functools.partial(
         ref.sweep_rows_block_gs_ref, vals_b, cols_b, spd.b, csr_bgs_out["x0"],
         chunk["picks"], block=blk), 1)
@@ -4267,7 +4549,7 @@ def main() -> int:
                       max_abs_err=csr_bgs_out["errs"][(None, blk)], ms=chunk["ms"],
                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                       library_ms=None, graph_ms=chunk["graph_ms"], block=blk,
-                      global_ms=chunk["turns"][1],
+                      global_ms=chunk["turns"][1], **work_keys(work),
                       **{f"block{CSR_BGS_BLOCKS[0]}_ms": small["ms"],
                          f"block{CSR_BGS_BLOCKS[0]}_graph_ms":
                              small["graph_ms"]}))
@@ -4291,7 +4573,8 @@ def main() -> int:
     ms = cuda_ms(functools.partial(ops.colsum, t_rec), 50)
     plain_ms = cuda_ms(functools.partial(ref.colsum_ref, t_rec), 50)
     lib_ms = cuda_ms(functools.partial(torch.sum, t_rec, 0), 50)
-    b_ms, by = bound_ms(t_rec.numel() * 4 + K * 4, float(t_rec.numel()))
+    work = roofline.colsum(*t_rec.shape)
+    b_ms, by = bound_ms(work)
     print(f"  colsum n={SPD_N} k={K}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
           f"torch.sum {lib_ms:.4f} ms; bound {b_ms:.5f} ms ({by})", flush=True)
     colsum_graph = graph_ms(functools.partial(ops.colsum, t_rec), 50)
@@ -4305,7 +4588,8 @@ def main() -> int:
                       "Pallas kernel)",
                       launches=launches["colsum"], max_abs_err=errs["colsum"],
                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=lib_ms, graph_ms=colsum_graph))
+                      library_ms=lib_ms, graph_ms=colsum_graph,
+                      **work_keys(work)))
 
     # Each kernel's call replayed from one CUDA graph ("graph_ms", taken
     # beside "ms" above): the card's time with the host's launch work (the
@@ -4324,6 +4608,8 @@ def main() -> int:
     left = live_children()
     check(not left, "no process this run started is still running "
           f"(children: {left or 'none'})")
+    print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s wall, the "
+          "kernels' build included", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {

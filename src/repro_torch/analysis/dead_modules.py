@@ -7,7 +7,8 @@ reaches its enclosing packages).  The roots:
 * the port's surface: ``repro_torch.core``, ``repro_torch.kernels``,
   every module of ``repro_torch.launch``, ``repro_torch.serve``,
   ``repro_torch.optim`` and ``repro_torch.analysis.lint``;
-* every ``repro_torch.tune`` module that runs as ``python -m`` (it has an
+* every ``repro_torch.tune``, ``repro_torch.paper`` and
+  ``repro_torch.examples`` module that runs as ``python -m`` (it has an
   ``if __name__ == "__main__":`` block);
 * every module ``chip_smoke.py`` imports, the imports inside its
   embedded child-process scripts included.
@@ -30,7 +31,8 @@ PACKAGE = "repro_torch"
 ROOT_MODULES = ("repro_torch.core", "repro_torch.kernels", "repro_torch.serve",
                 "repro_torch.optim", "repro_torch.analysis.lint")
 ROOT_PREFIXES = ("repro_torch.launch.",)
-CLI_PREFIX = "repro_torch.tune."
+CLI_PREFIXES = ("repro_torch.tune.", "repro_torch.paper.",
+                "repro_torch.examples.")
 _STR_IMPORT = re.compile(
     r"^\s*(?:from\s+(repro_torch(?:\.\w+)*)\s+import\s+([\w, ()]+)"
     r"|import\s+(repro_torch(?:\.\w+)*))", re.MULTILINE)
@@ -92,7 +94,7 @@ def reachable(parsed: dict, extra_roots: set[str]) -> tuple[dict, set[str]]:
         graph[mod] = edges
     roots = {m for m in known
              if m in ROOT_MODULES or m.startswith(ROOT_PREFIXES)
-             or (m.startswith(CLI_PREFIX) and _runs_as_main(trees[m]))}
+             or (m.startswith(CLI_PREFIXES) and _runs_as_main(trees[m]))}
     roots |= {t for t in (_resolve(n, known) for n in extra_roots) if t}
     reached: set[str] = set()
     frontier = sorted(roots)
@@ -115,6 +117,7 @@ def check_repo(root: str, parsed: dict, smoke: tuple | None = None
     return [Finding("DM1", modules[mod], 1, mod,
                     f"module {mod} is reached from no entry point of the "
                     "port (core, kernels, launch.*, serve, optim, "
-                    "analysis.lint, the tune CLIs, chip_smoke.py): wire it "
+                    "analysis.lint, the tune, paper and example CLIs, "
+                    "chip_smoke.py): wire it "
                     "in, or remove it")
             for mod in sorted(set(modules) - reached)]

@@ -19,7 +19,8 @@ fails): the two paths bitwise equal, column 0 at k = 51 bitwise column 0
 at k = 1, and the first ``PREFIX`` picks within ``SWEEP_RTOL`` (rel
 ||dx||) of the plain version (``kernels/ref.py``).  Also the chunk's byte
 bound (each picked row's stored nonzeros, value and id, its b row, the
-ids, x in and out, over 3.35 TB/s).
+ids, x in and out, ``roofline.sweep_rows_block_gs``) over the card's
+memory rate (``roofline.PEAKS``).
 
 ``--floor`` builds ``FLOOR_SOURCE`` (``nvcc``, into
 ``build/csr_block_gs_probe/``) and times the chain floor of each block
@@ -57,6 +58,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.core.operators import as_operator
 from repro_torch.core.spd import random_sparse_spd
 from repro_torch.kernels import ref, sweep_csr
@@ -69,7 +71,6 @@ BETA = 0.9
 REPS = 10
 PREFIX = 64
 SWEEP_RTOL = 1e-5
-HBM_BYTES_PER_S = 3.35e12
 
 FLOOR_SOURCE = r"""
 // The chain floor of the CSR block-GS ring kernel (csrc/sweep_csr.cu): its
@@ -316,10 +317,11 @@ def _bound_ms(op, picks, block: int) -> float:
     rows = (picks.long()[:, None] * block
             + torch.arange(block, device=picks.device)[None, :]).reshape(-1)
     vals, cols = op.padded_rows()
-    nnz = float(op.row_nnz[rows].double().sum())
-    nbytes = (nnz * (vals.element_size() + cols.element_size())
-              + rows.numel() * K * 4 + picks.numel() * 4 + 2 * N * K * 4)
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    work = roofline.sweep_rows_block_gs(
+        float(op.row_nnz[rows].double().sum()), rows.numel(), picks.numel(),
+        N, K, value_dtype=vals.dtype, index_dtype=cols.dtype)
+    peaks = roofline.peaks(torch.cuda.get_device_name())
+    return work.bytes / peaks.hbm_bytes_per_s * 1e3
 
 
 def _floor_launcher():

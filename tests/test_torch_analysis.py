@@ -424,3 +424,20 @@ def test_checks_import_neither_torch_nor_the_reference():
                 top = mod.split(".")[0]
                 assert top in sys.stdlib_module_names or \
                     mod.startswith("repro_torch.analysis"), (name, mod)
+
+
+def test_dead_modules_takes_the_paper_and_example_clis_as_roots():
+    main = "from repro_torch.paper import common\nif __name__ == '__main__':\n    pass\n"
+    files = {
+        "src/repro_torch/__init__.py": "",
+        "src/repro_torch/paper/__init__.py": "",
+        "src/repro_torch/paper/common.py": "",
+        "src/repro_torch/paper/fig.py": main,
+        "src/repro_torch/paper/draft.py": "",
+        "src/repro_torch/examples/__init__.py": "",
+        "src/repro_torch/examples/demo.py": main,
+        "src/repro_torch/examples/unused.py": "",
+    }
+    found = {s for _c, s in _repo(dead_modules, files)}
+    assert found == {"repro_torch.paper.draft",
+                     "repro_torch.examples.unused"}, found
