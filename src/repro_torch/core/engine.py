@@ -38,7 +38,11 @@ stream from the reference's ``delay_key``) or from ``delays=``.
 
 The serving unit is ``sequential_chunk`` (one record chunk: the sweep and
 the residual) and ``solve_batched`` (chunks with per-column tolerances and
-early exit), which ``serve/`` drives.
+early exit), which ``serve/`` drives.  While a ``torch.profiler`` records,
+they mark their host phases with ``repro_torch.spans.span``:
+``solve_batched``, and inside it ``engine.picks`` (the stream's checks),
+``engine.sweep``, ``engine.record``, ``engine.wait`` (each blocking read to
+the host) and ``engine.exit`` (the tolerance test).
 
 A distributed ``Schedule`` also carries the slab assignment
 (``partition``), the overlapped sync (``overlap``) and the wire codec
@@ -57,6 +61,7 @@ import torch
 from repro_torch.core.operators import (BlockBandedOp, CsrOp, DenseOp,
                                         as_operator)
 from repro_torch.kernels import ops
+from repro_torch.spans import span
 from repro_torch.tune import runtime as tune_runtime
 
 
@@ -388,7 +393,8 @@ def direction_stream(op, action: str, num_iters: int, *,
         if picks.shape != (num_iters,):
             raise ValueError(f"picks has shape {tuple(picks.shape)}, "
                              f"expected ({num_iters},)")
-        lo, hi = (int(v) for v in torch.aminmax(picks))
+        with span("engine.wait"):
+            lo, hi = (int(v) for v in torch.aminmax(picks))
         top = num_directions(op, action, block)
         if lo < 0 or hi >= top:
             raise IndexError(f"pick ids span [{lo}, {hi}], allowed "
@@ -691,9 +697,13 @@ def sequential_chunk(op, b, x, picks, *, action: str, beta: float = 1.0,
     """
     if action == "rk" and rn is None:
         rn = op.row_norms_sq()
-    x = sweep(op, b, x, picks, action=action, beta=beta, block=block, rn=rn)
-    r = b - op.matvec(x)
-    return x, torch.sqrt(ops.colsum(r * r))
+    with span("engine.sweep"):
+        x = sweep(op, b, x, picks, action=action, beta=beta, block=block,
+                  rn=rn)
+    with span("engine.record"):
+        r = b - op.matvec(x)
+        resid = torch.sqrt(ops.colsum(r * r))
+    return x, resid
 
 
 def solve_batched(
@@ -736,34 +746,42 @@ def solve_batched(
     the reference's ``chunk_fn=`` (a cached compiled chunk) and ``fused=``
     are gone: the port compiles nothing per call and has one engine.
     """
-    if num_iters <= 0:
-        raise ValueError(f"num_iters must be > 0 (got {num_iters})")
-    rec = resolve_record_every(num_iters, record_every)
-    chunks = num_iters // rec
-    picks = direction_stream(op, action, num_iters, generator=generator,
-                             picks=picks, block=block)
-    k = b.shape[1]
-    if x0 is None:
-        n_x = op.shape[0] if action == "gs" else op.shape[1]
-        x0 = torch.zeros((n_x, k), dtype=b.dtype, device=b.device)
-    tol = torch.as_tensor(tol, dtype=torch.float32).cpu().broadcast_to((k,))
-    rn = op.row_norms_sq() if action == "rk" else None
-    x, resid = x0, None
-    rounds = torch.zeros((k,), dtype=torch.int32)
-    conv = torch.zeros((k,), dtype=torch.bool)
-    ran = 0
-    for c in range(chunks):
-        x, resid = sequential_chunk(op, b, x, picks[c * rec:(c + 1) * rec],
-                                    action=action, beta=beta, block=block,
-                                    rn=rn)
-        ran = c + 1
-        newly = ~conv & (resid.cpu() <= tol)
-        rounds[newly] = ran
-        conv |= newly
-        go = on_record is None or bool(on_record(c, x, resid, conv.clone()))
-        if bool(conv.all()) or not go:
-            break
-    rounds = torch.where(conv, rounds, ran).to(torch.int32)
+    with span("solve_batched"):
+        if num_iters <= 0:
+            raise ValueError(f"num_iters must be > 0 (got {num_iters})")
+        rec = resolve_record_every(num_iters, record_every)
+        chunks = num_iters // rec
+        with span("engine.picks"):
+            picks = direction_stream(op, action, num_iters,
+                                     generator=generator, picks=picks,
+                                     block=block)
+        k = b.shape[1]
+        if x0 is None:
+            n_x = op.shape[0] if action == "gs" else op.shape[1]
+            x0 = torch.zeros((n_x, k), dtype=b.dtype, device=b.device)
+        tol = torch.as_tensor(tol, dtype=torch.float32).cpu().broadcast_to(
+            (k,))
+        rn = op.row_norms_sq() if action == "rk" else None
+        x, resid = x0, None
+        rounds = torch.zeros((k,), dtype=torch.int32)
+        conv = torch.zeros((k,), dtype=torch.bool)
+        ran = 0
+        for c in range(chunks):
+            x, resid = sequential_chunk(op, b, x, picks[c * rec:(c + 1) * rec],
+                                        action=action, beta=beta, block=block,
+                                        rn=rn)
+            ran = c + 1
+            with span("engine.wait"):
+                host = resid.cpu()
+            with span("engine.exit"):
+                newly = ~conv & (host <= tol)
+                rounds[newly] = ran
+                conv |= newly
+                go = on_record is None or bool(on_record(c, x, resid,
+                                                         conv.clone()))
+                if bool(conv.all()) or not go:
+                    break
+        rounds = torch.where(conv, rounds, ran).to(torch.int32)
     return BatchedSolveResult(x=x, resid=resid, rounds=rounds, converged=conv,
                               iters_run=ran * rec)
 
